@@ -1,0 +1,121 @@
+"""Build ``ray_tpu_torch/csrc/*.cu`` with nvcc and load them with ctypes.
+
+Each source is one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds): the op wrappers pass raw pointers from
+``tensor.data_ptr()`` and PyTorch's current stream.  Every C entry point
+returns ``cudaGetLastError()`` after its launch, and ``check`` raises on a
+nonzero code — a launch that CUDA refuses never runs, and a later
+``torch.cuda.synchronize()`` would not report it.
+
+Libraries go to ``build/ray_tpu_torch/`` at the root of the checkout, named
+by a hash of the sources and flags, so a second run reuses them and an
+edited source builds anew.  A build writes to a temporary name and renames
+it into place, so processes building at once never load a half-written
+library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, List, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
+KERNELS = ("decode_attention", "flash_fwd")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the port's "
+        "CUDA kernels cannot be built"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` lives: the name carries a
+    hash of that source, every shared header and the flags."""
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Build every library that is missing, one nvcc per source, all
+    started together.  Returns each built source's compiler output (the
+    ``-Xptxas -v`` register and shared-memory report); raises with the
+    output of the first build that failed."""
+    nvcc = None
+    running = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd: List[str] = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                          str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        running.append((name, proc, tmp, out))
+    reports: Dict[str, str] = {}
+    failed = []
+    for name, proc, tmp, out in running:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, out)
+        reports[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return reports
+
+
+def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
+    """Build if needed, load, and declare every entry point's argument
+    types (each returns an int error code)."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib.rt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} at launch: {msg}")

@@ -1,25 +1,38 @@
 #!/usr/bin/env python3
-"""Drive ray_tpu_torch's serving path on one NVIDIA GPU and check it.
+"""Drive ray_tpu_torch's serving and training paths on one NVIDIA GPU and
+check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (none is caught: any failure exits non-zero):
   1. setup: the card's name and power limit; build the CUDA kernels from
      ray_tpu_torch/csrc/ into build/ray_tpu_torch/;
-  2. each kernel against its plain PyTorch version on the card, at the
-     serving shapes of both families (TinyLlama-1.1B: 4 query heads per kv
-     head; GPT-2 small: one, on strided slices of the fused qkv), in bf16
-     at tolerance 2e-2 and in f32 at 1e-4, with its time, the plain
-     version's time, one PyTorch library call of the same function
-     (F.scaled_dot_product_attention, a yardstick the port never calls) and
-     the least time the card could take (bound);
+  2. each kernel against its plain PyTorch version on the card: decode and
+     flash forward at the serving shapes of both families (TinyLlama-1.1B:
+     4 query heads per kv head; GPT-2 small: one, on strided slices of the
+     fused qkv), the flash backward kernels (dQ, dK/dV) at GPT-2 small's
+     training shape (strided and contiguous), TinyLlama's width, S=1000
+     and non-causal S=512; bf16 at a tolerance of 2e-2 (relative to the
+     largest plain gradient for the backward) and f32 at 1e-4.  Each with
+     its time, the plain version's time, one PyTorch library call of the
+     same function (F.scaled_dot_product_attention forward or backward, a
+     yardstick the port never calls) and the least time the card could
+     take (bound);
   3. serving at full width: a TinyLlama-1.1B-shaped engine and a GPT-2-small
      engine (random weights from a seed) each answer 12 requests that join
      slots mid-run, and the launch counters show every prefill and decode
      layer went through the kernels;
   4. path parity: one prefill and 4 decode steps of each family at 2
      layers, through the kernels and through the plain versions, logits
-     compared (f32 at 1e-4, bf16 at 2e-2).
+     compared (f32 at 1e-4, bf16 launch by launch at 2e-2);
+  5. training at full width (the training slice's path): GPT-2 small, bf16,
+     flash attention, remat, B=32 x S=1024 seeded tokens, AdamW; 3 warm-up
+     and 10 timed steps on one batch, finite and falling loss, launch
+     counts per step (flash forward 2 x 12, dQ 12, dK/dV 12), tokens/s,
+     peak memory and one profiled step;
+  6. training parity: loss and every gradient leaf of both families at 2
+     layers, through the kernels and through the plain versions (f32 at
+     1e-4; bf16 launch by launch at 2e-2, leaves printed).
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -58,10 +71,19 @@ from ray_tpu_torch.models import (  # noqa: E402
     model_family,
 )
 from ray_tpu_torch.ops import _build  # noqa: E402
+from ray_tpu_torch.ops import attention as attention_ops  # noqa: E402
 from ray_tpu_torch.ops.attention import (  # noqa: E402
+    _flash_bwd,
     _flash_fwd,
     flash_attention,
+    flash_delta,
+    flash_dkv,
+    flash_dq,
     reference_attention,
+    reference_flash_bwd,
+    reference_flash_dkv,
+    reference_flash_dq,
+    reference_flash_fwd,
     reference_lse,
 )
 from ray_tpu_torch.ops.decode_attention import (  # noqa: E402
@@ -72,6 +94,10 @@ from ray_tpu_torch.ops.decode_attention import (  # noqa: E402
 TOL = 2e-2  # bf16 tolerance of tests/test_llama_kernels.py:199-200
 # f32: the kernels and the plain versions differ only in summation order.
 TOL_F32 = 1e-4
+# bf16 gradients: the backward kernels keep P and dS in f32 where the plain
+# versions (and the JAX kernels) round them to bf16, so a gradient is held
+# at 2e-2 of the largest plain gradient of its tensor.
+TOL_GRAD = 2e-2
 # Decode shapes of the serving runs of phase 3: layers, slots, query heads,
 # kv heads, head dim.
 TINYLLAMA_DECODE = (22, 8, 32, 8, 64)
@@ -179,12 +205,13 @@ def check_decode(gen, shape, t_max: int, pos_list, dtype=torch.bfloat16,
     return rec
 
 
-def check_flash(gen, s: int, causal: bool, h: int = 32,
+def check_flash(gen, s: int, causal: bool, h: int = 32, b: int = 1,
                 dtype=torch.bfloat16, tol: float = TOL, timed: bool = False):
-    """Flash forward at a prefill shape: B=1, H=h (32 for TinyLlama, 12 for
-    GPT-2 small), D=64."""
-    b, d = 1, 64
-    tag = f"flash H={h} S={s} causal={causal} {str(dtype)[6:]}"
+    """Flash forward at a prefill shape, B=b (1 for a prefill, 32 for
+    GPT-2's training batch), H=h (32 for TinyLlama, 12 for GPT-2 small),
+    D=64."""
+    d = 64
+    tag = f"flash B={b} H={h} S={s} causal={causal} {str(dtype)[6:]}"
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -196,7 +223,7 @@ def check_flash(gen, s: int, causal: bool, h: int = 32,
         "strided": (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]),
         "contiguous": tuple(qkv[:, :, i].contiguous() for i in range(3)),
     }
-    rec = {"H": h, "S": s, "causal": causal}
+    rec = {"B": b, "H": h, "S": s, "causal": causal}
     for name, (q, k, v) in layouts.items():
         out, lse = _flash_fwd(q, k, v, causal)
         err = assert_close(out, reference_attention(q, k, v, causal=causal),
@@ -226,6 +253,97 @@ def check_flash(gen, s: int, causal: bool, h: int = 32,
     return rec
 
 
+def check_grad(got, want, what: str) -> float:
+    """A gradient against its plain version: f32 at TOL_F32 (absolute and
+    relative), bf16 within TOL_GRAD of the largest plain value."""
+    err = max_err(got, want)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite gradient")
+    if want.dtype == torch.float32:
+        return assert_close(got, want, what, TOL_F32)
+    limit = TOL_GRAD * want.float().abs().max().item()
+    if err > limit:
+        raise AssertionError(f"{what}: kernel disagrees, max abs err {err} "
+                             f"(tolerance {limit})")
+    return err
+
+
+def flash_bwd_bound(b, s, h, d, causal, item, n_out, matmuls):
+    """The least time the card could take: ``matmuls`` products of 2*D
+    FLOPs over the live pairs, against q/k/v/dO read once, lse and delta,
+    and ``n_out`` gradients written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = 2 * matmuls * d * b * h * pairs
+    nbytes = (4 + n_out) * b * s * h * d * item + 2 * b * h * s * 4
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def check_flash_bwd(gen, b: int, h: int, s: int, causal: bool,
+                    dtype=torch.bfloat16, timed: bool = False):
+    """Both backward kernels against their plain versions at D=64, on
+    strided slices of a fused qkv (GPT-2's layout) and on contiguous
+    tensors, with the forward kernel's out and lse and a random dO."""
+    d = 64
+    tag = f"flash_bwd B={b} H={h} S={s} causal={causal} {str(dtype)[6:]}"
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    qkv = rand(b, s, 3, h, d)
+    layouts = {
+        "strided": (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]),
+        "contiguous": tuple(qkv[:, :, i].contiguous() for i in range(3)),
+    }
+    do = rand(b, s, h, d)
+    rec = {"B": b, "H": h, "S": s, "causal": causal, "dtype": str(dtype)[6:],
+           "max_abs_err": {}, "max_abs_plain": {}}
+    for name, (q, k, v) in layouts.items():
+        o, lse = _flash_fwd(q, k, v, causal)
+        delta = flash_delta(o, do)
+        args = (q, k, v, do, lse, delta, causal)
+        got = (flash_dq(*args), *flash_dkv(*args))
+        want = (reference_flash_dq(*args), *reference_flash_dkv(*args))
+        for key, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = check_grad(g, w, f"{tag} {name} {key}")
+            rec["max_abs_err"][key] = max(err,
+                                          rec["max_abs_err"].get(key, 0.0))
+            rec["max_abs_plain"][key] = w.float().abs().max().item()
+        print(f"{tag} {name}: max_abs_err "
+              f"{[max_err(g, w) for g, w in zip(got, want)]} against plain "
+              f"gradients up to "
+              f"{[w.float().abs().max().item() for w in want]}", flush=True)
+    if not timed:
+        return rec
+    q, k, v = layouts["contiguous"]
+    o, lse = _flash_fwd(q, k, v, causal)
+    delta = flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, causal)
+    item = q.element_size()
+    rec["dq"] = dict(ms=cuda_ms(lambda: flash_dq(*args), 10),
+                     plain_ms=cuda_ms(lambda: reference_flash_dq(*args), 3),
+                     **flash_bwd_bound(b, s, h, d, causal, item, 1, 3))
+    rec["dkv"] = dict(ms=cuda_ms(lambda: flash_dkv(*args), 10),
+                      plain_ms=cuda_ms(lambda: reference_flash_dkv(*args), 3),
+                      **flash_bwd_bound(b, s, h, d, causal, item, 2, 4))
+    # Library yardstick: the backward of one SDPA call (dq, dk and dv
+    # together) on a graph built once.
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    rec["library_backend"] = out.grad_fn.name()
+    rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    lib = torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    rec["library_err_vs_plain"] = max(
+        max_err(g.transpose(1, 2), w) for g, w in zip(
+            lib, (reference_flash_dq(*args), *reference_flash_dkv(*args))))
+    return rec
+
+
 # ------------------------------------------------------------------ phase 3
 def make_prompts(n: int, lo: int, hi: int, seed: int):
     rng = np.random.default_rng(seed)
@@ -237,6 +355,13 @@ def make_prompts(n: int, lo: int, hi: int, seed: int):
 def reset_counters():
     decode_attention.launches = 0
     flash_attention.launches = 0
+    flash_dq.launches = 0
+    flash_dkv.launches = 0
+
+
+def flash_counts():
+    return {"flash_fwd": flash_attention.launches,
+            "flash_dq": flash_dq.launches, "flash_dkv": flash_dkv.launches}
 
 
 def profile_decode(engine, prompts, steps: int):
@@ -366,14 +491,24 @@ def plain_flash(q, k, v, *, causal=True):
     return reference_attention(q, k, v, causal=causal)
 
 
-def checked(kernel, plain, tol: float, errs: list):
-    """``kernel``, each of whose results is held against ``plain`` on the
-    very inputs the path gave it; the errors are appended to ``errs``."""
+def within(tol: float):
+    """A check that holds a result at ``tol`` (absolute and relative)."""
+    return lambda got, want, what: assert_close(got, want, what, tol)
+
+
+def checked(kernel, plain, check, errs: list):
+    """``kernel``, each of whose results (a tensor or a tuple of them) is
+    held against ``plain`` on the very inputs the path gave it, by
+    ``check(got, want, what)``; each error and the largest plain value it
+    was held against are appended to ``errs``."""
     def call(*args, **kwargs):
-        out = kernel(*args, **kwargs)
-        errs.append(assert_close(out, plain(*args, **kwargs),
-                                 f"{kernel.__name__} on the path", tol))
-        return out
+        got, want = kernel(*args, **kwargs), plain(*args, **kwargs)
+        pairs = zip(*(x if isinstance(x, tuple) else (x,)
+                      for x in (got, want)))
+        for g, w in pairs:
+            errs.append((check(g, w, f"{kernel.__name__} on the path"),
+                         w.float().abs().max().item()))
+        return got
     return call
 
 
@@ -404,8 +539,8 @@ def path_parity(cfg, tol: float):
     reset_counters()
     call_errs = []
     with route_attention(
-            checked(decode_attention, plain_decode, tol, call_errs),
-            checked(flash_attention, plain_flash, tol, call_errs)):
+            checked(decode_attention, plain_decode, within(tol), call_errs),
+            checked(flash_attention, plain_flash, within(tol), call_errs)):
         kernel_logits = run()
     launches = (flash_attention.launches, decode_attention.launches)
     if launches != (cfg.n_layer, 4 * cfg.n_layer):
@@ -417,7 +552,212 @@ def path_parity(cfg, tol: float):
     for i, a in enumerate(kernel_logits):
         if not torch.isfinite(a).all():
             raise AssertionError(f"non-finite logits at step {i}")
-    return kernel_logits, plain_logits, max(call_errs)
+    return kernel_logits, plain_logits, max(e for e, _ in call_errs)
+
+
+# ------------------------------------------------------------------ phase 5
+ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# Kernel classes of a train step, by substrings of the kernel's name; the
+# first class that matches takes the kernel.
+KERNEL_CLASSES = (
+    ("attention", ATTENTION_KERNELS),
+    ("matmul", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise", "copy")),
+)
+
+
+def kernel_class(name: str) -> str:
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls
+    return "other"
+
+
+def profile_train_step(step):
+    """Where one train step's time goes: torch.profiler over one step,
+    kernel time by name, the device busy share of the profiled step and
+    the share of the three attention kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    attn = {name: sum(e.self_device_time_total for e in events
+                      if name in e.key) / 1e3
+            for name in ATTENTION_KERNELS}
+    by_class = {}
+    for e in events:
+        cls = kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    return {
+        "profiled_wall_ms": wall_ms,
+        "device_ms": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "kernel_launches": sum(e.count for e in events),
+        "attention_ms": attn,
+        "attention_share_of_device": (sum(attn.values()) / device_ms
+                                      if device_ms > 0 else None),
+        "by_class_ms": by_class,
+        "top_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3,
+                            e.count] for e in top],
+    }
+
+
+def train(cfg, batch: int, seq: int, warmup: int, steps: int,
+          lr: float = 1e-4):
+    """Train ``cfg`` on one seeded batch (the shape and step of
+    ``bench.py:bench_gpt2_train``): ``warmup`` steps, then ``steps`` timed
+    ones, then one profiled step.  Asserts finite, falling loss and the
+    launch counts of every step."""
+    fam = model_family(cfg)
+    params = fam.init(torch.Generator("cuda").manual_seed(SEED + 4), cfg)
+    params.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 5)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq + 1))).cuda()
+    opt = torch.optim.AdamW(params.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+
+    def step():
+        """The JAX package's ``_train_step_time`` step: loss, backward,
+        AdamW.  Returns the loss, still on the card."""
+        opt.zero_grad(set_to_none=True)
+        loss = fam.loss(params, tokens, cfg)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    n_layer = cfg.n_layer
+    want = {"flash_fwd": n_layer * (2 if cfg.remat else 1),
+            "flash_dq": n_layer, "flash_dkv": n_layer}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    losses, per_step = [], []
+
+    def counted_step():
+        before = flash_counts()
+        losses.append(step())
+        per_step.append({k: n - before[k] for k, n in flash_counts().items()})
+
+    for _ in range(warmup):
+        counted_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        counted_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = flash_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if any(c != want for c in per_step):
+        raise AssertionError(f"launches per step {per_step}, want {want} "
+                             "(flash forward, dQ, dK/dV)")
+    rep = {
+        "batch": batch, "seq": seq, "n_layer": n_layer, "remat": cfg.remat,
+        "warmup_steps": warmup, "timed_steps": steps,
+        "losses": losses, "mean_step_ms": step_ms,
+        "tokens_per_s": batch * seq / (step_ms / 1e3),
+        "peak_mem_gb": peak_gb, "launches": launches,
+        "launches_per_step": want,
+    }
+    rep["profile"] = profile_train_step(step)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return rep
+
+
+# ------------------------------------------------------------------ phase 6
+@contextlib.contextmanager
+def route_flash(fwd, bwd):
+    """Point ``flash_attention``'s autograd function at another forward
+    (``_flash_fwd``) and backward (``_flash_bwd``: delta, then dQ and
+    dK/dV)."""
+    mod = attention_ops
+    saved = (mod._flash_fwd, mod._flash_bwd)
+    mod._flash_fwd, mod._flash_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        mod._flash_fwd, mod._flash_bwd = saved
+
+
+def grads_of(fam, params, tokens, cfg):
+    for p in params.parameters():
+        p.grad = None
+    loss = fam.loss(params, tokens, cfg)
+    loss.backward()
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in params.named_parameters()}
+
+
+def train_parity(cfg, batch: int, seq: int):
+    """Loss and every gradient leaf of one batch, through the kernels
+    (each launch also held against its plain version on its own inputs)
+    and through the plain versions."""
+    fam = model_family(cfg)
+    params = fam.init(torch.Generator("cuda").manual_seed(SEED + 6), cfg)
+    params.requires_grad_(True)
+    rng = np.random.default_rng(SEED + 7)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (batch, seq + 1))).cuda()
+    f32_run = cfg.dtype == "float32"
+    fwd_tol = TOL_F32 if f32_run else TOL
+    errs = {"flash_fwd": [], "flash_bwd": []}
+    reset_counters()
+    with route_flash(
+            checked(_flash_fwd, reference_flash_fwd, within(fwd_tol),
+                    errs["flash_fwd"]),
+            checked(_flash_bwd, reference_flash_bwd, check_grad,
+                    errs["flash_bwd"])):
+        k_loss, k_grads = grads_of(fam, params, tokens, cfg)
+    launches = flash_counts()
+    want = {"flash_fwd": cfg.n_layer * (2 if cfg.remat else 1),
+            "flash_dq": cfg.n_layer, "flash_dkv": cfg.n_layer}
+    if launches != want:
+        raise AssertionError(f"kernel run launched {launches}, want {want}")
+    with route_flash(reference_flash_fwd, reference_flash_bwd):
+        p_loss, p_grads = grads_of(fam, params, tokens, cfg)
+    if flash_counts() != launches:
+        raise AssertionError("the plain run launched a kernel")
+    leaf_errs = {n: max_err(k_grads[n], p_grads[n]) for n in p_grads}
+    for n, g in k_grads.items():
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"non-finite gradient of {n}")
+        if f32_run:
+            assert_close(g, p_grads[n], f"gradient of {n}", TOL_F32)
+    if f32_run:
+        assert_close(k_loss, p_loss, "loss", TOL_F32)
+    rep = {
+        "loss_kernels": k_loss.item(), "loss_plain": p_loss.item(),
+        "launches": launches,
+        "largest_launch_err": {k: max(e for e, _ in v)
+                               for k, v in errs.items()},
+        "largest_launch_rel_err": {k: max(e / m for e, m in v if m > 0)
+                                   for k, v in errs.items()},
+        "leaf_max_abs_err": leaf_errs,
+        "leaf_max_abs_plain": {n: g.float().abs().max().item()
+                               for n, g in p_grads.items()},
+    }
+    del params, k_grads, p_grads
+    torch.cuda.empty_cache()
+    return rep
 
 
 def main() -> int:
@@ -464,8 +804,23 @@ def main() -> int:
     check_flash(gen, 1000, True, **f32)
     check_flash(gen, 512, False, **f32)
     check_flash(gen, 1000, True, h=12, **f32)
+    # The forward at GPT-2 small's training shape, for the step's budget.
+    flash_train = check_flash(gen, 1024, True, h=12, b=32, timed=True)
+    # The backward kernels: GPT-2 small's training shape (timed), TinyLlama's
+    # width, S=1000 (no multiple of 64) and non-causal S=512.
+    bwd_runs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        bwd_runs += [
+            check_flash_bwd(gen, 32, 12, 1024, True, dtype,
+                            timed=dtype == torch.bfloat16),
+            check_flash_bwd(gen, 1, 32, 2048, True, dtype),
+            check_flash_bwd(gen, 1, 32, 1000, True, dtype),
+            check_flash_bwd(gen, 1, 32, 512, False, dtype)]
+    bwd_train = bwd_runs[0]
     print("phase2 " + json.dumps({"decode": dec, "decode_gpt2": dec_gpt2,
-                                  "flash": flash_runs}), flush=True)
+                                  "flash": flash_runs,
+                                  "flash_train_shape": flash_train,
+                                  "flash_bwd": bwd_runs}), flush=True)
 
     # Phase 3: serving at full width.
     llama = serve(LlamaConfig.tinyllama_1b(), 8, 2048,
@@ -504,6 +859,27 @@ def main() -> int:
               f"{f' (tolerance {tol})' if f32_run else ''}, largest logit "
               f"{max(b.abs().max().item() for b in plain)}", flush=True)
 
+    # Phase 5: training at full width (this slice's path).
+    train_rep = train(GPT2Config.small(dtype="bfloat16", attention="flash",
+                                       remat=True), 32, 1024, 3, 10)
+    print("train gpt2_small " + json.dumps(train_rep), flush=True)
+    train_launches = train_rep["launches"]
+
+    # Phase 6: training parity, kernels vs plain versions, both families.
+    for dtype in ("float32", "bfloat16"):
+        for cfg, batch, seq in (
+                (LlamaConfig.tinyllama_1b(n_layer=2, dtype=dtype,
+                                          attention="flash"), 2, 2048),
+                (dataclasses.replace(
+                    GPT2Config.small(dtype=dtype, attention="flash",
+                                     remat=True), n_layer=2), 4, 1024)):
+            rep = train_parity(cfg, batch, seq)
+            what = f"train parity {type(cfg).__name__} {dtype}"
+            held = ("loss and every leaf within 1e-4" if dtype == "float32"
+                    else "each launch within its bf16 tolerance")
+            print(f"{what} (2 layers, B={batch} x S={seq}): {held}; "
+                  + json.dumps(rep), flush=True)
+
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     kernels = [
         {"name": "decode_attention", "route": "cuda",
@@ -518,12 +894,29 @@ def main() -> int:
          "source": "ray_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "ray_tpu/ops/attention.py:55",
          "launches": main_launches["flash_fwd"],
+         "launches_train_gpt2_small": train_launches["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
          "bound_by": flash_main["bound_by"],
          "library_ms": flash_main["library_ms"]},
     ]
+    for name, key, line in (("flash_dq", "dq", 144),
+                            ("flash_dkv", "dkv", 191)):
+        rec = bwd_train[key]
+        errs = [bwd_train["max_abs_err"][g]
+                for g in (("dq",) if key == "dq" else ("dk", "dv"))]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"ray_tpu/ops/attention.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": max(errs),
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": bwd_train["library_ms"],
+            "library": f"one SDPA backward (dq, dk, dv): "
+                       f"{bwd_train['library_backend']}"})
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,18 +1,23 @@
 """Model families of the port, and the registry that makes the LLM engine
-model-agnostic — port of ``ray_tpu/models/__init__.py``, trimmed to the
-serving surface (``loss`` and ``param_axes`` come with training)."""
+model-agnostic — port of ``ray_tpu/models/__init__.py``.  ``param_axes``
+(the logical sharding tree) waits for the port of ``parallel/``."""
 
 import dataclasses as _dataclasses
 from typing import Any as _Any, Callable as _Callable
 
-from .gpt2 import GPT2Config, gpt2_apply, gpt2_init  # noqa: F401
+from .gpt2 import GPT2Config, gpt2_apply, gpt2_init, gpt2_loss  # noqa: F401
 from .gpt2_decode import (  # noqa: F401
     gpt2_decode_step,
     gpt2_init_cache,
     gpt2_prefill,
     sample_logits,
 )
-from .llama import LlamaConfig, llama_apply, llama_init  # noqa: F401
+from .llama import (  # noqa: F401
+    LlamaConfig,
+    llama_apply,
+    llama_init,
+    llama_loss,
+)
 from .llama_decode import (  # noqa: F401
     llama_decode_step,
     llama_init_cache,
@@ -23,11 +28,12 @@ from .params import ParamTree  # noqa: F401
 
 @_dataclasses.dataclass(frozen=True)
 class ModelFamily:
-    """Uniform serve surface over a model architecture."""
+    """Uniform train + serve surface over a model architecture."""
 
     name: str
     init: _Callable  # (gen, cfg, device=None) -> ParamTree
     apply: _Callable  # (params, tokens, cfg) -> logits
+    loss: _Callable  # (params, tokens, cfg, ...) -> scalar
     init_cache: _Callable  # (cfg, batch, max_len, device=None) -> cache
     prefill: _Callable  # (params, tokens, lengths, cache, cfg)
     decode_step: _Callable  # (params, tokens, pos, cache, cfg)
@@ -56,6 +62,7 @@ register_model_family(
         name="gpt2",
         init=gpt2_init,
         apply=gpt2_apply,
+        loss=gpt2_loss,
         init_cache=gpt2_init_cache,
         prefill=gpt2_prefill,
         decode_step=gpt2_decode_step,
@@ -67,6 +74,7 @@ register_model_family(
         name="llama",
         init=llama_init,
         apply=llama_apply,
+        loss=llama_loss,
         init_cache=llama_init_cache,
         prefill=llama_prefill,
         decode_step=llama_decode_step,

@@ -1,12 +1,13 @@
-"""GPT-2 family, forward only — port of ``ray_tpu/models/gpt2.py``.
+"""GPT-2 family — port of ``ray_tpu/models/gpt2.py``.
 
 Parameters keep the JAX tree's layout (``wqkv [L, E, 3, H, D]``,
 ``wo [L, H, D, E]``, the unembedding tied to ``wte``), so each einsum below
 reads as its JAX counterpart.  bf16 activations and params with f32
 layernorm and softmax, as in the JAX package.  Attention is ``dense`` (the
-plain reference) or ``flash`` (the flash-forward kernel on the card); the
-ring and Ulysses variants, remat and the loss come with the training
-slice.
+plain reference) or ``flash`` (the flash kernels on the card, forward and
+backward).  ``remat`` recomputes each block in backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` does there); the named
+remat policies and the ring and Ulysses variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, dtype_of, resolve_device
 from ..ops.attention import flash_attention, reference_attention
@@ -30,6 +32,11 @@ class GPT2Config:
     d_model: int = 768
     dtype: str = "bfloat16"
     attention: str = "dense"  # dense | flash
+    remat: bool = False
+    # "full" (and, as in JAX, any unknown value) recomputes the whole block
+    # in backward.  The named policies of the JAX package (dots, dots_all,
+    # matmuls, save_mlp) are not ported yet and raise.
+    remat_policy: str = "full"
 
     @property
     def head_dim(self) -> int:
@@ -124,17 +131,72 @@ def _block(x, layer, cfg: GPT2Config):
                 + layer["bo2"]).to(x.dtype)
 
 
+REMAT_POLICIES_NOT_PORTED = ("dots", "dots_all", "matmuls", "save_mlp")
+
+
 def gpt2_hidden(params: ParamTree, tokens, cfg: GPT2Config):
     """tokens: [B, S] int → final layernormed hidden states [B, S, E]."""
+    if cfg.remat and cfg.remat_policy in REMAT_POLICIES_NOT_PORTED:
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported yet")
     s = tokens.shape[1]
     x = params["wte"][tokens] + params["wpe"][:s][None]
     for l in range(cfg.n_layer):
-        x = _block(x, params.layer(l), cfg)
+        if cfg.remat:
+            x = checkpoint(_block, x, params.layer(l), cfg,
+                           use_reentrant=False)
+        else:
+            x = _block(x, params.layer(l), cfg)
     return _layernorm(x, params["lnf_g"], params["lnf_b"])
 
 
-@torch.inference_mode()
 def gpt2_apply(params: ParamTree, tokens, cfg: GPT2Config):
     """tokens: [B, S] int → logits [B, S, V]."""
     x = gpt2_hidden(params, tokens, cfg)
     return torch.einsum("bse,ve->bsv", x, params["wte"])
+
+
+def _ce_from_logits(logits, targets, z_loss: float):
+    """Summed (not mean) next-token NLL: the logsumexp in f32, the gold
+    logit gathered from the bf16 logits and upcast after
+    (``ray_tpu/models/gpt2.py:264-272``)."""
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (logz - gold.float()).sum()
+    if z_loss > 0:
+        nll = nll + z_loss * (logz ** 2).sum()
+    return nll
+
+
+def _chunk_nll(wte, x_c, t_c, z_loss: float):
+    logits = torch.einsum("bce,ve->bcv", x_c, wte)
+    return _ce_from_logits(logits, t_c, z_loss)
+
+
+def gpt2_loss(params: ParamTree, tokens, cfg: GPT2Config,
+              z_loss: float = 0.0, ce_chunks: int = 0):
+    """Next-token cross-entropy.  tokens: [B, S+1] (inputs = [:, :-1]).
+
+    ``ce_chunks > 0`` evaluates the unembedding + CE in that many
+    sequence chunks, each recomputed in backward, so peak memory holds one
+    [B, S/c, V] logits block instead of [B, S, V].
+    """
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    x = gpt2_hidden(params, inputs, cfg)
+    b, s, _ = x.shape
+    if ce_chunks > 1 and s % ce_chunks != 0:
+        raise ValueError(
+            f"ce_chunks={ce_chunks} must divide the sequence length {s} "
+            "(silently falling back would materialize the full [B,S,V] "
+            "logits the caller asked to avoid)"
+        )
+    if ce_chunks <= 1:
+        return _chunk_nll(params["wte"], x, targets, z_loss) / (b * s)
+    c = s // ce_chunks
+    total = x.new_zeros((), dtype=torch.float32)
+    for i in range(ce_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_nll, params["wte"], x[:, sl],
+                                   targets[:, sl], z_loss,
+                                   use_reentrant=False)
+    return total / (b * s)

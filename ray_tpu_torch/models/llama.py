@@ -1,10 +1,13 @@
-"""Llama-family decoder LM, forward only — port of ``ray_tpu/models/llama.py``.
+"""Llama-family decoder LM — port of ``ray_tpu/models/llama.py``.
 
 RMSNorm + interleaved RoPE + GQA + SwiGLU, parameters in the JAX tree's
 layout (``wq [L, E, H, D]``, ``wk/wv [L, E, Hkv, D]``, ``wo [L, H, D, E]``),
 bf16 with f32 norms and softmax.  Attention is ``dense`` (the plain
-reference) or ``flash`` (the flash-forward kernel on the card); the loss,
-remat and the sharded variants come with the training slice.
+reference) or ``flash`` (the flash kernels on the card, forward and
+backward; k/v are repeated to H heads first, so the backward of
+``repeat_interleave`` sums each group's gradient per kv head).  ``remat``
+recomputes each block in backward; the sharded variants are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, dtype_of, resolve_device
 from ..ops.attention import flash_attention, reference_attention
@@ -32,6 +36,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
     attention: str = "dense"  # dense | flash
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -158,13 +163,30 @@ def _block(x, layer, positions, cfg: LlamaConfig):
     return x + _swiglu(y, layer).to(x.dtype)
 
 
-@torch.inference_mode()
 def llama_apply(params: ParamTree, tokens, cfg: LlamaConfig):
     """tokens: [B, S] int → logits [B, S, V]."""
     s = tokens.shape[1]
     x = params["wte"][tokens].to(dtype_of(cfg.dtype))
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     for l in range(cfg.n_layer):
-        x = _block(x, params.layer(l), positions, cfg)
+        if cfg.remat:
+            x = checkpoint(_block, x, params.layer(l), positions, cfg,
+                           use_reentrant=False)
+        else:
+            x = _block(x, params.layer(l), positions, cfg)
     x = _rmsnorm(x, params["rms_f"], cfg.rms_eps)
     return torch.einsum("bse,ve->bsv", x, params["lm_head"])
+
+
+def llama_loss(params: ParamTree, tokens, cfg: LlamaConfig,
+               z_loss: float = 0.0):
+    """Next-token cross-entropy; tokens [B, S+1].  The logits are upcast
+    to f32 before the logsumexp, as in ``ray_tpu/models/llama.py:214-224``."""
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = llama_apply(params, inputs, cfg).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = (logz - gold).mean()
+    if z_loss > 0:
+        nll = nll + z_loss * (logz ** 2).mean()
+    return nll

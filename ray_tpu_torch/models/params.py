@@ -18,7 +18,9 @@ Shapes = Dict[str, object]  # name -> shape tuple, and "blocks" -> {name: shape}
 
 
 class ParamTree(nn.Module):
-    """Inference parameters (no gradients) in the JAX tree's layout."""
+    """Parameters in the JAX tree's layout, frozen (``requires_grad=False``)
+    as they are made; a trainer unfreezes them with
+    ``params.requires_grad_(True)``."""
 
     def __init__(self, tree: Dict[str, object]):
         super().__init__()

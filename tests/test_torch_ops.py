@@ -17,9 +17,14 @@ import torch
 
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.attention import (
+    _flash_bwd,
     _flash_fwd,
     flash_attention,
+    flash_delta,
+    flash_dkv,
+    flash_dq,
     reference_attention,
+    reference_flash_bwd,
 )
 from ray_tpu_torch.ops.decode_attention import (
     decode_attention,
@@ -36,6 +41,10 @@ jdec = importlib.import_module("ray_tpu.ops.decode_attention")
 # (tests/test_llama_kernels.py:128-186).
 FLASH_TOL = 2e-4
 DECODE_TOL = 1e-5
+# f32 flash gradients: the JAX package allows 1e-3
+# (tests/test_parallel.py:94-99); both sides compute in f32 and differ only
+# in summation order, which moves gradients of size ~1 by ~1e-6.
+GRAD_TOL = 1e-4
 
 
 def _rand(rng, *shape):
@@ -104,6 +113,115 @@ class TestAttention:
         pos = torch.zeros(1, dtype=torch.int32, device="meta")
         with pytest.raises(ValueError, match="unsupported device"):
             decode_attention(qd, cache, cache, pos, 0)
+
+
+class TestFlashBackward:
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_grads_match_jax_pallas_interpret(self, causal):
+        """dq, dk, dv through ``_Flash`` (the plain recipe on the CPU)
+        against ``jax.grad`` of the Pallas forward + dq/dkv kernels in
+        interpret mode, with a random output cotangent."""
+        import jax
+
+        rng = np.random.default_rng(8)
+        q, k, v, g = (_rand(rng, 2, 32, 2, 16) for _ in range(4))
+
+        def jloss(q, k, v):
+            out = jattn.flash_attention(q, k, v, causal=causal,
+                                        force_pallas=True, block_q=16,
+                                        block_k=16)
+            return (out * g).sum()
+
+        want = jax.grad(jloss, argnums=(0, 1, 2))(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+        got = torch.autograd.grad(
+            flash_attention(tq, tk, tv, causal=causal), (tq, tk, tv), _t(g))
+        for name, a, b in zip("qkv", got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       rtol=GRAD_TOL, atol=GRAD_TOL,
+                                       err_msg=f"d{name}")
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_plain_recipe_matches_autograd_on_fused_qkv(self, causal):
+        """S=23 (no multiple of any block) on strided slices of one fused
+        qkv: the gradient of qkv through ``flash_attention`` (the plain
+        recipe) equals autograd through ``reference_attention``."""
+        rng = np.random.default_rng(9)
+        qkv = _t(_rand(rng, 2, 23, 3, 2, 16)).requires_grad_(True)
+        g = _t(_rand(rng, 2, 23, 2, 16))
+
+        def grad(fn):
+            out = fn(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], causal=causal)
+            return torch.autograd.grad(out, qkv, g)[0]
+
+        np.testing.assert_allclose(grad(flash_attention).numpy(),
+                                   grad(reference_attention).numpy(),
+                                   rtol=GRAD_TOL, atol=GRAD_TOL)
+
+    def test_plain_recipe_matches_autograd_with_gqa(self):
+        """k/v repeated to H heads (Llama's GQA): the backward of
+        ``repeat_interleave`` sums the flash gradients per kv head."""
+        rng = np.random.default_rng(10)
+        q = _t(_rand(rng, 2, 19, 4, 16)).requires_grad_(True)
+        k, v = (_t(_rand(rng, 2, 19, 2, 16)).requires_grad_(True)
+                for _ in range(2))
+        g = _t(_rand(rng, 2, 19, 4, 16))
+
+        def grads(fn):
+            out = fn(q, torch.repeat_interleave(k, 2, dim=2),
+                     torch.repeat_interleave(v, 2, dim=2), causal=True)
+            return torch.autograd.grad(out, (q, k, v), g)
+
+        for a, b in zip(grads(flash_attention), grads(reference_attention)):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=GRAD_TOL,
+                                       atol=GRAD_TOL)
+
+    def test_wrappers_and_plain_bwd_agree_on_cpu(self):
+        """On CPU tensors ``_flash_bwd`` and each kernel wrapper run the
+        plain versions: bit-equal to ``reference_flash_bwd``."""
+        rng = np.random.default_rng(11)
+        q, k, v, do = (_t(_rand(rng, 1, 21, 2, 16)) for _ in range(4))
+        o, lse = _flash_fwd(q, k, v, True)
+        want = reference_flash_bwd(q, k, v, o, lse, do, True)
+        delta = flash_delta(o, do)
+        assert delta.shape == lse.shape == (2, 21, 1)
+        got = (flash_dq(q, k, v, do, lse, delta, True),
+               *flash_dkv(q, k, v, do, lse, delta, True))
+        for a, b, c in zip(got, _flash_bwd(q, k, v, o, lse, do, True), want):
+            assert torch.equal(a, c) and torch.equal(b, c)
+
+    def test_bf16_rounds_where_the_jax_kernels_round(self):
+        """In bf16 the plain recipe rounds P and dS where the Pallas kernels
+        do, so it lands within a few bf16 steps of them (interpret mode)."""
+        import jax
+
+        rng = np.random.default_rng(12)
+        q, k, v, g = (_rand(rng, 1, 32, 2, 16) for _ in range(4))
+        jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g)]
+        _, vjp = jax.vjp(
+            lambda q, k, v: jattn._flash(q, k, v, True, 16, 16, True),
+            *jb[:3])
+        want = vjp(jb[3])
+        tb = [_t(x).to(torch.bfloat16) for x in (q, k, v, g)]
+        o, lse = _flash_fwd(*tb[:3], True)
+        got = reference_flash_bwd(*tb[:3], o, lse, tb[3], True)
+        for name, a, b in zip("qkv", got, want):
+            b = np.asarray(b, np.float32)
+            np.testing.assert_allclose(a.float().numpy(), b,
+                                       atol=2e-2 * np.abs(b).max(), rtol=0,
+                                       err_msg=f"d{name}")
+
+    def test_backward_refuses_other_devices(self):
+        x = torch.empty(1, 4, 2, 64, device="meta")
+        lse = torch.empty(2, 4, 1, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            _flash_bwd(x, x, x, x, lse, x, True)
+        with pytest.raises(ValueError, match="unsupported device"):
+            flash_dq(x, x, x, x, lse, lse, True)
+        with pytest.raises(ValueError, match="unsupported device"):
+            flash_dkv(x, x, x, x, lse, lse, True)
 
 
 def _decode_data(seed, b=3, t=64, h=4, hkv=4, d=16, layers=2):

@@ -6,13 +6,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (none is caught: any failure exits non-zero):
   1. setup: the card's name and power limit; build the CUDA kernels from
-     ray_tpu_torch/csrc/ into build/ray_tpu_torch/;
+     ray_tpu_torch/csrc/ into build/ray_tpu_torch/, print ptxas's register
+     and spill report, and count HGMMA (wgmma) and UTMALDG (TMA load)
+     instructions in the SASS of the flash_fwd and flash_bwd libraries
+     (both must be nonzero: the bf16 forward and dK/dV run on them);
   2. each kernel against its plain PyTorch version on the card: decode and
      flash forward at the serving shapes of both families (TinyLlama-1.1B:
      4 query heads per kv head; GPT-2 small: one, on strided slices of the
      fused qkv), the flash backward kernels (dQ, dK/dV) at GPT-2 small's
      training shape (strided and contiguous), TinyLlama's width, S=1000
-     and non-causal S=512; bf16 at a tolerance of 2e-2 (relative to the
+     and non-causal S=512, and the forward and backward at D=128 (S=1000
+     causal, S=512 not); bf16 at a tolerance of 2e-2 (relative to the
      largest plain gradient for the backward) and f32 at 1e-4.  Each with
      its time, the plain version's time, one PyTorch library call of the
      same function (F.scaled_dot_product_attention forward or backward, a
@@ -29,7 +33,8 @@ Phases (none is caught: any failure exits non-zero):
      flash attention, remat, B=32 x S=1024 seeded tokens, AdamW; 3 warm-up
      and 10 timed steps on one batch, finite and falling loss, launch
      counts per step (flash forward 2 x 12, dQ 12, dK/dV 12), tokens/s,
-     peak memory and one profiled step;
+     peak memory and one profiled step, in which each of the three
+     attention kernels must show device time;
   6. training parity: loss and every gradient leaf of both families at 2
      layers, through the kernels and through the plain versions (f32 at
      1e-4; bf16 launch by launch at 2e-2, leaves printed).
@@ -94,9 +99,10 @@ from ray_tpu_torch.ops.decode_attention import (  # noqa: E402
 TOL = 2e-2  # bf16 tolerance of tests/test_llama_kernels.py:199-200
 # f32: the kernels and the plain versions differ only in summation order.
 TOL_F32 = 1e-4
-# bf16 gradients: the backward kernels keep P and dS in f32 where the plain
-# versions (and the JAX kernels) round them to bf16, so a gradient is held
-# at 2e-2 of the largest plain gradient of its tensor.
+# bf16 gradients: the dK/dV kernel rounds P and dS to bf16 where the plain
+# versions (and the JAX kernels) round them, but only dQ keeps dS in f32, and
+# the kernels sum in another order, so a gradient is held at 2e-2 of the
+# largest plain gradient of its tensor.
 TOL_GRAD = 2e-2
 # Decode shapes of the serving runs of phase 3: layers, slots, query heads,
 # kv heads, head dim.
@@ -115,8 +121,38 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``."""
+def cuobjdump_path() -> str:
+    """cuobjdump beside nvcc, else the copy Triton's package carries."""
+    beside = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if os.path.exists(beside):
+        return beside
+    try:
+        import triton
+        carried = os.path.join(os.path.dirname(triton.__file__), "backends",
+                               "nvidia", "bin", "cuobjdump")
+        if os.path.exists(carried):
+            return carried
+    except ImportError:
+        pass
+    raise RuntimeError("cuobjdump not found beside nvcc or in triton's "
+                       "package: the SASS check cannot run")
+
+
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def sass_counts(name: str) -> dict:
+    """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
+    the built library ``name`` holds, from its SASS."""
+    sass = subprocess.run(
+        [cuobjdump_path(), "-sass", str(_build.library_path(name))],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    return {op: sass.count(op) for op in SASS_OPS}
+
+
+def event_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of one call from CUDA events around ``iters`` calls: the
+    kernels' time, or the host's dispatch where that is the longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -128,6 +164,27 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of one call: torch.profiler's time of every kernel
+    ``fn`` launches, summed over ``iters`` calls.  It leaves out the host's
+    dispatch, which for a kernel of tens of microseconds (a prefill's
+    flash forward) is longer than the kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return total_us / 1e3 / iters
 
 
 def max_err(a, b) -> float:
@@ -173,9 +230,13 @@ def check_decode(gen, shape, t_max: int, pos_list, dtype=torch.bfloat16,
         # L2, as a decode step does (the layers' prefixes together exceed
         # the 50 MB L2).
         layers = itertools.cycle(range(n_layer))
-        ms = cuda_ms(lambda: decode_attention(
-            q, kc, vc, pos, next(layers), k_self=k_self, v_self=v_self), 100)
-        plain_ms = cuda_ms(lambda: reference_decode_attention(
+
+        def kernel():
+            return decode_attention(q, kc, vc, pos, next(layers),
+                                    k_self=k_self, v_self=v_self)
+        ms = kernel_ms(kernel, 100)
+        ms_events = event_ms(kernel, 100)
+        plain_ms = kernel_ms(lambda: reference_decode_attention(
             q, kc, vc, pos, next(layers), k_self, v_self), 20)
         live = [p if k_self is not None else p + 1 for p in pos_list]
         item = q.element_size()
@@ -183,7 +244,7 @@ def check_decode(gen, shape, t_max: int, pos_list, dtype=torch.bfloat16,
         nbytes += 2 * q.numel() * item + pos.numel() * 4  # q and out
         if k_self is not None:
             nbytes += 2 * ks.numel() * item
-        rec[form].update(ms=ms, plain_ms=plain_ms,
+        rec[form].update(ms=ms, event_ms=ms_events, plain_ms=plain_ms,
                          bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                          bound_by="bytes", bytes=nbytes)
     if not timed:
@@ -201,17 +262,17 @@ def check_decode(gen, shape, t_max: int, pos_list, dtype=torch.bfloat16,
     rec["library_err_vs_plain"] = max_err(
         sdpa(0)[:, :, 0], reference_decode_attention(q, kc, vc, pos, 0))
     layers = itertools.cycle(range(n_layer))
-    rec["library_ms"] = cuda_ms(lambda: sdpa(next(layers)), 100)
+    rec["library_ms"] = kernel_ms(lambda: sdpa(next(layers)), 100)
     return rec
 
 
 def check_flash(gen, s: int, causal: bool, h: int = 32, b: int = 1,
-                dtype=torch.bfloat16, tol: float = TOL, timed: bool = False):
+                dtype=torch.bfloat16, tol: float = TOL, timed: bool = False,
+                d: int = 64):
     """Flash forward at a prefill shape, B=b (1 for a prefill, 32 for
     GPT-2's training batch), H=h (32 for TinyLlama, 12 for GPT-2 small),
-    D=64."""
-    d = 64
-    tag = f"flash B={b} H={h} S={s} causal={causal} {str(dtype)[6:]}"
+    D=d (64 for both families; 128 the kernel's other width)."""
+    tag = f"flash B={b} H={h} S={s} D={d} causal={causal} {str(dtype)[6:]}"
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -223,7 +284,7 @@ def check_flash(gen, s: int, causal: bool, h: int = 32, b: int = 1,
         "strided": (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]),
         "contiguous": tuple(qkv[:, :, i].contiguous() for i in range(3)),
     }
-    rec = {"B": b, "H": h, "S": s, "causal": causal}
+    rec = {"B": b, "H": h, "S": s, "D": d, "causal": causal}
     for name, (q, k, v) in layouts.items():
         out, lse = _flash_fwd(q, k, v, causal)
         err = assert_close(out, reference_attention(q, k, v, causal=causal),
@@ -235,12 +296,14 @@ def check_flash(gen, s: int, causal: bool, h: int = 32, b: int = 1,
         rec["max_abs_err"] = max(err, rec.get("max_abs_err", 0.0))
     if timed:
         q, k, v = layouts["contiguous"]
-        rec["ms"] = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                            20)
-        rec["plain_ms"] = cuda_ms(
+        rec["ms"] = kernel_ms(
+            lambda: flash_attention(q, k, v, causal=causal), 20)
+        rec["event_ms"] = event_ms(
+            lambda: flash_attention(q, k, v, causal=causal), 20)
+        rec["plain_ms"] = kernel_ms(
             lambda: reference_attention(q, k, v, causal=causal), 5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        rec["library_ms"] = kernel_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), 20)
         pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4 * b * h * d * pairs  # QK^T and PV over the live pairs
@@ -282,12 +345,12 @@ def flash_bwd_bound(b, s, h, d, causal, item, n_out, matmuls):
 
 
 def check_flash_bwd(gen, b: int, h: int, s: int, causal: bool,
-                    dtype=torch.bfloat16, timed: bool = False):
-    """Both backward kernels against their plain versions at D=64, on
+                    dtype=torch.bfloat16, timed: bool = False, d: int = 64):
+    """Both backward kernels against their plain versions at D=d, on
     strided slices of a fused qkv (GPT-2's layout) and on contiguous
     tensors, with the forward kernel's out and lse and a random dO."""
-    d = 64
-    tag = f"flash_bwd B={b} H={h} S={s} causal={causal} {str(dtype)[6:]}"
+    tag = (f"flash_bwd B={b} H={h} S={s} D={d} causal={causal} "
+           f"{str(dtype)[6:]}")
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -298,7 +361,8 @@ def check_flash_bwd(gen, b: int, h: int, s: int, causal: bool,
         "contiguous": tuple(qkv[:, :, i].contiguous() for i in range(3)),
     }
     do = rand(b, s, h, d)
-    rec = {"B": b, "H": h, "S": s, "causal": causal, "dtype": str(dtype)[6:],
+    rec = {"B": b, "H": h, "S": s, "D": d, "causal": causal,
+           "dtype": str(dtype)[6:],
            "max_abs_err": {}, "max_abs_plain": {}}
     for name, (q, k, v) in layouts.items():
         o, lse = _flash_fwd(q, k, v, causal)
@@ -322,11 +386,14 @@ def check_flash_bwd(gen, b: int, h: int, s: int, causal: bool,
     delta = flash_delta(o, do)
     args = (q, k, v, do, lse, delta, causal)
     item = q.element_size()
-    rec["dq"] = dict(ms=cuda_ms(lambda: flash_dq(*args), 10),
-                     plain_ms=cuda_ms(lambda: reference_flash_dq(*args), 3),
+    rec["dq"] = dict(ms=kernel_ms(lambda: flash_dq(*args), 10),
+                     event_ms=event_ms(lambda: flash_dq(*args), 10),
+                     plain_ms=kernel_ms(lambda: reference_flash_dq(*args), 3),
                      **flash_bwd_bound(b, s, h, d, causal, item, 1, 3))
-    rec["dkv"] = dict(ms=cuda_ms(lambda: flash_dkv(*args), 10),
-                      plain_ms=cuda_ms(lambda: reference_flash_dkv(*args), 3),
+    rec["dkv"] = dict(ms=kernel_ms(lambda: flash_dkv(*args), 10),
+                      event_ms=event_ms(lambda: flash_dkv(*args), 10),
+                      plain_ms=kernel_ms(lambda: reference_flash_dkv(*args),
+                                         3),
                       **flash_bwd_bound(b, s, h, d, causal, item, 2, 4))
     # Library yardstick: the backward of one SDPA call (dq, dk and dv
     # together) on a graph built once.
@@ -335,7 +402,7 @@ def check_flash_bwd(gen, b: int, h: int, s: int, causal: bool,
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     rec["library_backend"] = out.grad_fn.name()
-    rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+    rec["library_ms"] = kernel_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), 10)
     lib = torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
     rec["library_err_vs_plain"] = max(
@@ -404,6 +471,30 @@ def profile_decode(engine, prompts, steps: int):
     }
 
 
+def profile_prefill(engine, prompt: str):
+    """Where one prefill's time goes: torch.profiler over the engine step
+    that admits one request (prefill and first sample, nothing else in
+    flight), host wall time and kernel time by class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.generate([prompt], SamplingParams(max_tokens=1))  # its shapes warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate([prompt], SamplingParams(max_tokens=1))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    return {"prompt_bytes": len(prompt), "wall_ms": wall_ms,
+            "device_ms": device_ms if device_ms > 0 else None,
+            "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+            "kernel_launches": sum(e.count for e in events),
+            "by_class_ms": by_kernel_class(events)}
+
+
 def serve(model_cfg, max_batch: int, max_seq: int, prompts, max_tokens: int,
           stagger: int, profile_steps: int = 0):
     """Serve ``prompts`` through the engine's public API, adding one every
@@ -418,12 +509,16 @@ def serve(model_cfg, max_batch: int, max_seq: int, prompts, max_tokens: int,
     torch.cuda.synchronize()
     reset_counters()
     pending, outs, steps = list(prompts), {}, 0
+    prefill_ms = []  # each admission's prefill, in order
     t0 = time.perf_counter()
     while pending or engine.has_unfinished():
         if pending and steps % stagger == 0:
             engine.add_request(pending.pop(0), sp)
+        before = engine.stats.prefill_s
         for out in engine.step():
             outs[out["request_id"]] = out
+        if engine.stats.prefill_s > before:
+            prefill_ms.append((engine.stats.prefill_s - before) * 1e3)
         steps += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -454,6 +549,8 @@ def serve(model_cfg, max_batch: int, max_seq: int, prompts, max_tokens: int,
         "mean_decode_step_ms": st.decode_s / st.decode_steps * 1e3,
         "prefills": st.prefills,
         "mean_prefill_ms": st.prefill_s / st.prefills * 1e3,
+        "prefill_ms_each": prefill_ms,
+        "median_prefill_ms": float(np.median(prefill_ms)),
         "mean_prompt_bytes": float(np.mean([len(p) for p in prompts])),
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -461,6 +558,8 @@ def serve(model_cfg, max_batch: int, max_seq: int, prompts, max_tokens: int,
     if profile_steps:
         rep["profile"] = profile_decode(engine, prompts[:max_batch],
                                         profile_steps)
+        rep["profile_prefill"] = profile_prefill(
+            engine, make_prompts(1, 1000, 1000, SEED + 9)[0])
     del engine
     torch.cuda.empty_cache()
     return rep
@@ -556,7 +655,9 @@ def path_parity(cfg, tol: float):
 
 
 # ------------------------------------------------------------------ phase 5
-ATTENTION_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+# The kernels a bf16 train step launches, by their names in the profile.
+ATTENTION_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_kernel",
+                     "flash_dkv_wgmma_kernel")
 # Kernel classes of a train step, by substrings of the kernel's name; the
 # first class that matches takes the kernel.
 KERNEL_CLASSES = (
@@ -573,6 +674,15 @@ def kernel_class(name: str) -> str:
         if any(k in name for k in keys):
             return cls
     return "other"
+
+
+def by_kernel_class(events) -> dict:
+    """Device ms of profiler kernel ``events``, summed by kernel class."""
+    by_class = {}
+    for e in events:
+        cls = kernel_class(e.key)
+        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
+    return by_class
 
 
 def profile_train_step(step):
@@ -594,10 +704,6 @@ def profile_train_step(step):
     attn = {name: sum(e.self_device_time_total for e in events
                       if name in e.key) / 1e3
             for name in ATTENTION_KERNELS}
-    by_class = {}
-    for e in events:
-        cls = kernel_class(e.key)
-        by_class[cls] = by_class.get(cls, 0.0) + e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
     return {
@@ -608,7 +714,7 @@ def profile_train_step(step):
         "attention_ms": attn,
         "attention_share_of_device": (sum(attn.values()) / device_ms
                                       if device_ms > 0 else None),
-        "by_class_ms": by_class,
+        "by_class_ms": by_kernel_class(events),
         "top_kernels_ms": [[e.key[:70], e.self_device_time_total / 1e3,
                             e.count] for e in top],
     }
@@ -678,6 +784,11 @@ def train(cfg, batch: int, seq: int, warmup: int, steps: int,
         "launches_per_step": want,
     }
     rep["profile"] = profile_train_step(step)
+    silent = [k for k, ms in rep["profile"]["attention_ms"].items() if not ms]
+    if silent:
+        raise AssertionError(f"no device time for {silent} in the profiled "
+                             "step: an attention kernel was renamed or not "
+                             "launched")
     del params, opt, step
     torch.cuda.empty_cache()
     return rep
@@ -779,8 +890,16 @@ def main() -> int:
           f"(others reused)", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
-            if "Used" in line:
+            if "Used" in line or "spill" in line or "Potential" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
+    # The bf16 flash forward and dK/dV run on the tensor cores (HGMMA) with
+    # TMA-fed tiles (UTMALDG): both must be in the built libraries.
+    sass = {name: sass_counts(name) for name in ("flash_fwd", "flash_bwd")}
+    print(f"sass {json.dumps(sass)}", flush=True)
+    for name, counts in sass.items():
+        if not all(counts.values()):
+            raise AssertionError(f"lib{name}: SASS counts {counts}, want "
+                                 f"every one of {SASS_OPS} > 0")
 
     # Phase 2: each kernel against its plain version.
     # Cache lengths: 2048 and 1024 are the engines' max_seq_len; 1000 is no
@@ -804,6 +923,10 @@ def main() -> int:
     check_flash(gen, 1000, True, **f32)
     check_flash(gen, 512, False, **f32)
     check_flash(gen, 1000, True, h=12, **f32)
+    # The kernels' other head dim, D=128, in bf16 (no model of the repo
+    # serves it yet).
+    flash_d128 = [check_flash(gen, 1000, True, d=128),
+                  check_flash(gen, 512, False, d=128)]
     # The forward at GPT-2 small's training shape, for the step's budget.
     flash_train = check_flash(gen, 1024, True, h=12, b=32, timed=True)
     # The backward kernels: GPT-2 small's training shape (timed), TinyLlama's
@@ -816,10 +939,13 @@ def main() -> int:
             check_flash_bwd(gen, 1, 32, 2048, True, dtype),
             check_flash_bwd(gen, 1, 32, 1000, True, dtype),
             check_flash_bwd(gen, 1, 32, 512, False, dtype)]
+    bwd_runs += [check_flash_bwd(gen, 1, 32, 1000, True, d=128),
+                 check_flash_bwd(gen, 1, 32, 512, False, d=128)]
     bwd_train = bwd_runs[0]
     print("phase2 " + json.dumps({"decode": dec, "decode_gpt2": dec_gpt2,
                                   "flash": flash_runs,
                                   "flash_train_shape": flash_train,
+                                  "flash_d128": flash_d128,
                                   "flash_bwd": bwd_runs}), flush=True)
 
     # Phase 3: serving at full width.
@@ -881,38 +1007,46 @@ def main() -> int:
                   + json.dumps(rep), flush=True)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
+    # "design" is the bf16 route each kernel runs on the main path: tensor
+    # cores fed by TMA, or f32 FMAs (f32 runs FMAs everywhere).
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "ray_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "ray_tpu/ops/decode_attention.py:95",
+         "replaces": "ray_tpu/ops/decode_attention.py:95", "design": "fma",
          "launches": main_launches["decode_attention"],
          "max_abs_err": dec["self"]["max_abs_err"],
-         "ms": dec["self"]["ms"], "plain_ms": dec["self"]["plain_ms"],
+         "ms": dec["self"]["ms"], "event_ms": dec["self"]["event_ms"],
+         "plain_ms": dec["self"]["plain_ms"],
          "bound_ms": dec["self"]["bound_ms"], "bound_by": "bytes",
          "library_ms": dec["library_ms"]},
         {"name": "flash_fwd", "route": "cuda",
          "source": "ray_tpu_torch/csrc/flash_fwd.cu",
-         "replaces": "ray_tpu/ops/attention.py:55",
+         "replaces": "ray_tpu/ops/attention.py:55", "design": "wgmma+tma",
          "launches": main_launches["flash_fwd"],
          "launches_train_gpt2_small": train_launches["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
          "bound_by": flash_main["bound_by"],
-         "library_ms": flash_main["library_ms"]},
+         "library_ms": flash_main["library_ms"],
+         "event_ms": flash_main["event_ms"],
+         "train_shape": {k: flash_train[k] for k in (
+             "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "max_abs_err")}},
     ]
-    for name, key, line in (("flash_dq", "dq", 144),
-                            ("flash_dkv", "dkv", 191)):
+    for name, key, line, design in (("flash_dq", "dq", 144, "fma"),
+                                    ("flash_dkv", "dkv", 191, "wgmma+tma")):
         rec = bwd_train[key]
         errs = [bwd_train["max_abs_err"][g]
                 for g in (("dq",) if key == "dq" else ("dk", "dv"))]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": f"ray_tpu/ops/attention.py:{line}",
+            "replaces": f"ray_tpu/ops/attention.py:{line}", "design": design,
             "launches": train_launches[name],
             "max_abs_err": max(errs),
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "event_ms": rec["event_ms"],
+            "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": bwd_train["library_ms"],
             "library": f"one SDPA backward (dq, dk, dv): "

@@ -11,6 +11,7 @@ namespace rtt {
 
 // Same masking value as the JAX package (ops/attention.py NEG_INF).
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
 
 // dtype codes, matching the wrappers' DTYPE_CODES: 0 float32, 1 bfloat16.
 enum DType : int { kF32 = 0, kBF16 = 1 };

@@ -10,36 +10,53 @@
 //   dQ = D^-1/2 * dS K                (flash_dq)
 //   dV = P^T dO,  dK = D^-1/2 * dS^T Q  (flash_dkv)
 // with the scale applied once, at the end, as the JAX kernels apply it.
-// Scores, P, dS and the accumulators stay in f32 (the JAX kernels round P
-// and dS to bf16 before their matmuls; the plain versions beside these
-// kernels do so too, so bf16 is compared at a relative tolerance).
+// Scores and accumulators are f32.  The bf16 dK/dV kernel rounds P and dS
+// to bf16 before its products, where the JAX kernel rounds them; dQ (FMA)
+// still keeps dS in f32, so bf16 is compared at a relative tolerance.
 //
 // What bounds them on an H100: operations.  Over the live (query, key)
 // pairs dQ does three matmuls (QK^T, dO V^T, dS K: 6*D FLOPs a pair) and
-// dK/dV four (8*D), against ~7 B*S*H*D elements read and written, far
-// above the ~295 FLOP/byte ridge.  What the design does about it, and what
-// it does not do yet:
+// dK/dV four (8*D: 103.2 GFLOP at B=32, H=12, S=1024, D=64, causal),
+// against ~7 B*S*H*D elements read and written, far above the ~295
+// FLOP/byte ridge.  Common to both:
 //   - the TPU kernels hold whole K/V (dQ) or Q/dO (dK/dV) rows in VMEM; a
-//     block's 227 KB of shared memory does not hold them at S=2048.  So dQ
-//     runs on grid (B*H, ceil(Sq/64)), each block holding its Q, dO, lse
-//     and delta rows and walking 64-row K/V tiles up to the diagonal; dK/dV
-//     runs on grid (B*H, ceil(Sk/64)), each block holding its K and V rows
-//     and walking 64-row Q/dO tiles from the diagonal tile to the end;
-//   - tiles are f32 in shared memory (rows padded to D+1 so column reads
-//     are free of bank conflicts): at D=128, dK/dV holds K, V, Q and dO
-//     (132 KB) plus the P and dS tiles (33 KB);
+//     block's 227 KB of shared memory does not hold them at S=2048, so
+//     each block holds one side's rows and walks tiles of the other: dQ
+//     over K/V tiles up to the diagonal, dK/dV over Q/dO tiles from the
+//     diagonal tile to the end (its blockIdx.y order is heaviest first);
 //   - q/k/v/dO are read in their [B, S, H, D] layout through strides, so
 //     GPT-2's slices of the fused qkv are read in place; dq/dk/dv are
 //     written contiguous [B, S, H, D];
 //   - the ragged edge (S not a multiple of 64) is masked: keys past Sk and
 //     queries past Sq get P = 0 (a query row past Sq has no lse, and an
-//     exp(s - garbage) there would put inf * 0 = NaN into dK/dV);
-//   - each thread computes a 4x8 tile of scores and a 4x(D/8) tile of its
-//     output with f32 FMAs from shared memory.  It does not use the tensor
-//     cores: wgmma on TMA-fed bf16 tiles is the follow-up.
+//     exp(s - garbage) there would put inf * 0 = NaN into dK/dV).
+// dK/dV in bf16 (flash_dkv_wgmma_kernel) runs the four products on the
+// tensor cores:
+//   - grid (B*H, ceil(Sk/128)), K-stationary: two consumer warpgroups own
+//     64 keys each, whose K and V tiles one TMA load brings once; a ninth
+//     warp is the producer and streams 64-row Q/dO tiles with their lse and
+//     delta slices through a ring of two stages guarded by mbarriers, so
+//     one tile's load overlaps the previous tile's products;
+//   - per tile: S^T = K.Q^T and dP^T = V.dO^T by wgmma from shared memory
+//     (K-major, 128-byte swizzle); P^T = exp(S^T*scale - lse), masked, and
+//     dS^T = P^T*(dP^T - delta) on the f32 accumulators; both go to bf16 in
+//     registers as the A operands of dV += P^T.dO and dK += dS^T.Q, with dO
+//     and Q the MN-major B operands; dK and dV stay in f32 registers, and
+//     dK takes the scale once at the end;
+//   - at D=128 a consumer thread holds 128 f32 of dK and dV besides 64 of
+//     S^T and dP^T, more than the 168 registers ptxas gives a thread of
+//     this block: it spills ~900 bytes and serializes the wgmmas there
+//     (right, but slower; no model of the repo runs D=128 yet);
+//   - sm90.cuh holds the PTX (mbarrier, TMA, descriptors, wgmma).
+// dQ in both dtypes and dK/dV in f32 run f32 FMAs from padded shared-memory
+// tiles (4x8 scores and 4x(D/8) outputs a thread), so f32 keeps full f32
+// products (wgmma on f32 operands would run in TF32).
 // D is a template parameter: 64 and 128 are built.
 
+#include <array>
+
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -391,23 +408,238 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   return (int)cudaGetLastError();
 }
 
-enum Which { kDQ, kDKV };
+// ------------------------------------------------- dK/dV, bf16, wgmma + TMA
+constexpr int WG_BK = 128;          // keys per block: two warpgroups of 64
+constexpr int WG_BQ = 64;           // query rows per ring stage
+constexpr int WG_STAGES = 2;
+constexpr int WG_THREADS = 288;     // two consumer warpgroups + one producer warp
+constexpr int WG_CONSUMER_WARPS = 8;
 
-template <typename T, int D>
-int launch(Which which, const Args& a, void* out0, void* out1) {
-  return which == kDQ ? launch_dq<T, D>(a, out0) : launch_dkv<T, D>(a, out0, out1);
+template <int D>
+constexpr size_t dkv_wg_smem_bytes() {
+  // K and V (two row boxes per 64 columns), Q and dO per stage, lse and
+  // delta per stage, five mbarriers, and slack to align the base.
+  return (size_t)(D / 64) * sm90::BOX_BYTES * (4 + 2 * WG_STAGES) +
+         2 * WG_STAGES * WG_BQ * sizeof(float) + 64 + 1024;
 }
 
-// Dispatch on dtype and D.
-int dispatch(Which which, int dtype, int D, const Args& a, void* out0, void* out1) {
-  if (dtype == rtt::kF32) {
-    if (D == 64) return launch<float, 64>(which, a, out0, out1);
-    if (D == 128) return launch<float, 128>(which, a, out0, out1);
-  } else if (dtype == rtt::kBF16) {
-    if (D == 64) return launch<__nv_bfloat16, 64>(which, a, out0, out1);
-    if (D == 128) return launch<__nv_bfloat16, 128>(which, a, out0, out1);
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, 1) flash_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const float* __restrict__ lse, const float* __restrict__ delta,  // [B*H, Sq]
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,  // [B, Sk, H, D] contiguous
+    int H, int Sq, int Sk, int causal, float scale) {
+  constexpr int DB = D / 64;  // 64-column boxes per row
+  constexpr int BOX = sm90::BOX_BYTES;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align_1024(smem_raw);
+  uint8_t* k_s = smem;                            // box (c, wg): [64 keys][64]
+  uint8_t* v_s = k_s + 2 * DB * BOX;              // box (c, wg)
+  uint8_t* q_s = v_s + 2 * DB * BOX;              // box (stage, c): [64 queries][64]
+  uint8_t* do_s = q_s + WG_STAGES * DB * BOX;     // box (stage, c)
+  float* lse_s = reinterpret_cast<float*>(do_s + WG_STAGES * DB * BOX);  // [stage][64]
+  float* dl_s = lse_s + WG_STAGES * WG_BQ;                               // [stage][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dl_s + WG_STAGES * WG_BQ);
+  uint64_t* kv_bar = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + WG_STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * WG_BK;
+  const int n_q = (Sq + WG_BQ - 1) / WG_BQ;
+  // Causal: query tiles before the one holding key k0 see none of these keys.
+  const int first = causal ? k0 / WG_BQ : 0;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(kv_bar, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      sm90::mbar_init(&full[s], 32);  // the producer warp's lanes
+      sm90::mbar_init(&empty[s], WG_CONSUMER_WARPS);
+    }
+    sm90::mbar_init_fence();
   }
-  return (int)cudaErrorInvalidValue;
+  __syncthreads();
+
+  if (warp == WG_CONSUMER_WARPS) {  // producer
+    if (lane == 0) {
+      sm90::tma_prefetch_map(&tq);
+      sm90::tma_prefetch_map(&tdo);
+      sm90::mbar_arrive_expect_tx(kv_bar, 4 * DB * BOX);
+      for (int c = 0; c < DB; ++c)
+        for (int r = 0; r < 2; ++r) {
+          sm90::tma_load_4d(k_s + (c * 2 + r) * BOX, &tk, kv_bar, c * 64, h, k0 + r * 64, b);
+          sm90::tma_load_4d(v_s + (c * 2 + r) * BOX, &tv, kv_bar, c * 64, h, k0 + r * 64, b);
+        }
+    }
+    const float* lse_bh = lse + (size_t)bh * Sq;
+    const float* dl_bh = delta + (size_t)bh * Sq;
+    for (int tile = first; tile < n_q; ++tile) {
+      const int j = tile - first;
+      const int st = j % WG_STAGES;
+      const int q0 = tile * WG_BQ;
+      if (j >= WG_STAGES) sm90::mbar_wait(&empty[st], ((j / WG_STAGES) - 1) & 1);
+      // Rows past Sq have no lse: zeros, and P is masked to 0 there.
+      for (int i = lane; i < WG_BQ; i += 32) {
+        const int qi = q0 + i;
+        lse_s[st * WG_BQ + i] = qi < Sq ? lse_bh[qi] : 0.f;
+        dl_s[st * WG_BQ + i] = qi < Sq ? dl_bh[qi] : 0.f;
+      }
+      if (lane == 0) {
+        sm90::mbar_arrive_expect_tx(&full[st], 2 * DB * BOX);
+        for (int c = 0; c < DB; ++c) {
+          sm90::tma_load_4d(q_s + (st * DB + c) * BOX, &tq, &full[st], c * 64, h, q0, b);
+          sm90::tma_load_4d(do_s + (st * DB + c) * BOX, &tdo, &full[st], c * 64, h, q0, b);
+        }
+      } else {
+        sm90::mbar_arrive(&full[st]);
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns keys k0 + wg*64 .. +63; this thread holds
+  // keys krow and krow + 8 of the accumulators (rows: keys, columns:
+  // queries for S^T and dP^T, head dims for dK and dV).
+  const int wg = warp / 4;
+  const int t = lane % 4;
+  const int wg_k0 = k0 + wg * 64;
+  const int krow = wg_k0 + (warp % 4) * 16 + lane / 4;
+
+  float dk_acc[DB][32], dv_acc[DB][32];
+#pragma unroll
+  for (int c = 0; c < DB; ++c)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dk_acc[c][r] = dv_acc[c][r] = 0.f;
+
+  sm90::mbar_wait(kv_bar, 0);
+  for (int tile = first; tile < n_q; ++tile) {
+    const int j = tile - first;
+    const int st = j % WG_STAGES;
+    const int q0 = tile * WG_BQ;
+    sm90::mbar_wait(&full[st], (j / WG_STAGES) & 1);
+    // Causal: a tile whose last query precedes the warpgroup's first key
+    // has P = 0 throughout.
+    if (!causal || q0 + WG_BQ - 1 >= wg_k0) {
+      float s[32], dp[32];
+#pragma unroll
+      for (int r = 0; r < 32; ++r) s[r] = dp[r] = 0.f;
+      sm90::wgmma_fence();
+      sm90::fence_acc(s);
+      sm90::fence_acc(dp);
+      // S^T = K.Q^T and dP^T = V.dO^T, all four operands K-major.
+#pragma unroll
+      for (int c = 0; c < DB; ++c)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          sm90::wgmma_ss<0>(s, sm90::desc_kmajor(k_s + (c * 2 + wg) * BOX, ks),
+                            sm90::desc_kmajor(q_s + (st * DB + c) * BOX, ks), 1);
+          sm90::wgmma_ss<0>(dp, sm90::desc_kmajor(v_s + (c * 2 + wg) * BOX, ks),
+                            sm90::desc_kmajor(do_s + (st * DB + c) * BOX, ks), 1);
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_acc(s);
+      sm90::fence_acc(dp);
+
+      // P^T = exp(S^T * scale - lse), 0 where masked or past either edge;
+      // dS^T = P^T * (dP^T - delta).
+      const float* lse_t = lse_s + st * WG_BQ;
+      const float* dl_t = dl_s + st * WG_BQ;
+      const bool need_mask =
+          q0 + WG_BQ > Sq || wg_k0 + 64 > Sk || (causal && q0 < wg_k0 + 63);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int qc = sm90::acc_col(r) + 2 * t;
+        float p = exp2f((s[r] * scale - lse_t[qc]) * rtt::LOG2E);
+        if (need_mask) {
+          const int qi = q0 + qc;
+          const int kj = krow + sm90::acc_row(r);
+          if (qi >= Sq || kj >= Sk || (causal && kj > qi)) p = 0.f;
+        }
+        s[r] = p;
+        dp[r] = p * (dp[r] - dl_t[qc]);
+      }
+      // Both rounded to bf16 before their products, as the JAX kernel
+      // rounds them.
+      uint32_t pa[16], da[16];
+      sm90::acc_to_frag(s, pa);
+      sm90::acc_to_frag(dp, da);
+
+      // dV += P^T.dO and dK += dS^T.Q, with dO and Q the MN-major B operands.
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < DB; ++c) {
+        sm90::fence_acc(dv_acc[c]);
+        sm90::fence_acc(dk_acc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < DB; ++c)
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          sm90::wgmma_rs<1>(dv_acc[c], pa + 4 * ks,
+                            sm90::desc_mnmajor(do_s + (st * DB + c) * BOX, ks), 1);
+          sm90::wgmma_rs<1>(dk_acc[c], da + 4 * ks,
+                            sm90::desc_mnmajor(q_s + (st * DB + c) * BOX, ks), 1);
+        }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < DB; ++c) {
+        sm90::fence_acc(dv_acc[c]);
+        sm90::fence_acc(dk_acc[c]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kj = krow + 8 * i;
+    if (kj < Sk) {
+      const size_t row = (((size_t)b * Sk + kj) * H + h) * D;
+#pragma unroll
+      for (int c = 0; c < DB; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int r = 4 * jj + 2 * i;
+          const int col = c * 64 + 8 * jj + 2 * t;
+          *reinterpret_cast<uint32_t*>(dk + row + col) =
+              sm90::pack_bf16(dk_acc[c][r] * scale, dk_acc[c][r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dv + row + col) =
+              sm90::pack_bf16(dv_acc[c][r], dv_acc[c][r + 1]);
+        }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  auto arr = [](const BSH& s) { return std::array<long long, 3>{s.b, s.s, s.h}; };
+  const auto qs = arr(a.qs), ks = arr(a.ks), vs = arr(a.vs), dos = arr(a.dos);
+  CUtensorMap tq, tk, tv, tdo;
+  if (!sm90::encode_bshd(&tq, a.q, a.B, a.Sq, a.H, D, qs.data()) ||
+      !sm90::encode_bshd(&tk, a.k, a.B, a.Sk, a.H, D, ks.data()) ||
+      !sm90::encode_bshd(&tv, a.v, a.B, a.Sk, a.H, D, vs.data()) ||
+      !sm90::encode_bshd(&tdo, a.dout, a.B, a.Sq, a.H, D, dos.data()))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = dkv_wg_smem_bytes<D>();
+  auto kern = flash_dkv_wgmma_kernel<D>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.B * a.H, (a.Sk + WG_BK - 1) / WG_BK);
+  kern<<<grid, WG_THREADS, smem, a.stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.H, a.Sq, a.Sk,
+      a.causal, a.scale);
+  return (int)cudaGetLastError();
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -418,6 +650,24 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
   return Args{q, k, v, dout, lse, delta, B, H, Sq, Sk, bsh(q_strides), bsh(k_strides),
               bsh(v_strides), bsh(do_strides), causal, scale,
               static_cast<cudaStream_t>(stream)};
+}
+
+// Dispatch on dtype and D: dQ runs its FMA kernel in both dtypes; dK/dV
+// runs the wgmma kernel in bf16 and the FMA kernel in f32.
+int dispatch_dq(int dtype, int D, const Args& a, void* dq) {
+  if (dtype == rtt::kF32 && D == 64) return launch_dq<float, 64>(a, dq);
+  if (dtype == rtt::kF32 && D == 128) return launch_dq<float, 128>(a, dq);
+  if (dtype == rtt::kBF16 && D == 64) return launch_dq<__nv_bfloat16, 64>(a, dq);
+  if (dtype == rtt::kBF16 && D == 128) return launch_dq<__nv_bfloat16, 128>(a, dq);
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch_dkv(int dtype, int D, const Args& a, void* dk, void* dv) {
+  if (dtype == rtt::kF32 && D == 64) return launch_dkv<float, 64>(a, dk, dv);
+  if (dtype == rtt::kF32 && D == 128) return launch_dkv<float, 128>(a, dk, dv);
+  if (dtype == rtt::kBF16 && D == 64) return launch_dkv_wgmma<64>(a, dk, dv);
+  if (dtype == rtt::kBF16 && D == 128) return launch_dkv_wgmma<128>(a, dk, dv);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -433,7 +683,7 @@ extern "C" int flash_dq(int dtype, int D, const void* q, const void* k, const vo
                         const long long* do_strides, int causal, float scale, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Sq, Sk, q_strides, k_strides,
                            v_strides, do_strides, causal, scale, stream);
-  return dispatch(kDQ, dtype, D, a, dq, nullptr);
+  return dispatch_dq(dtype, D, a, dq);
 }
 
 // Same inputs; writes dk and dv [B, Sk, H, D] (contiguous).
@@ -444,5 +694,5 @@ extern "C" int flash_dkv(int dtype, int D, const void* q, const void* k, const v
                          const long long* do_strides, int causal, float scale, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, B, H, Sq, Sk, q_strides, k_strides,
                            v_strides, do_strides, causal, scale, stream);
-  return dispatch(kDKV, dtype, D, a, dk, dv);
+  return dispatch_dkv(dtype, D, a, dk, dv);
 }

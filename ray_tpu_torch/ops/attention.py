@@ -20,6 +20,12 @@ Port of ``ray_tpu/ops/attention.py``:
     forward is ``_flash_fwd`` and whose backward is ``_flash_bwd``, on the
     CPU as on the card.
 
+Which design runs is fixed by the dtype inside the C entry points: bf16
+goes to the tensor-core kernels (wgmma on TMA-fed tiles) for the forward
+and dK/dV, f32 to the FMA kernels (wgmma on f32 would run in TF32); dQ runs
+its FMA kernel in both.  ``tma_ready`` copies a bf16 tensor that TMA cannot
+read in place before it reaches a TMA kernel.
+
 The plain versions' f32 matmuls assume PyTorch's default
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32) when they run
 on the card as a yardstick.
@@ -263,8 +269,29 @@ def _strides(x):
     return _STRIDES(x.stride(0), x.stride(1), x.stride(2))
 
 
+def tma_ready(x):
+    """``x`` itself when TMA can read it in place, else a contiguous copy.
+
+    A TMA tensor map over [B, S, H, D] needs a 16-byte-aligned base, a
+    contiguous last dim, B/S/H strides that are multiples of 16 bytes, and
+    each stride covering the dim inside it (GPT-2's slices of the fused
+    qkv and contiguous tensors qualify).  Anything else is copied."""
+    item = x.element_size()
+    size, stride = x.shape, x.stride()
+    inner = size[-1] * item  # bytes spanned by the dims inside each stride
+    ok = x.data_ptr() % 16 == 0 and stride[-1] == 1
+    for dim in (2, 1, 0):
+        ok = ok and stride[dim] * item % 16 == 0 and stride[dim] * item >= inner
+        inner = stride[dim] * item * size[dim]
+    # A fresh allocation: ``contiguous()`` would hand back a tensor that is
+    # contiguous already but sits at an unaligned offset.
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
 def _launch_fwd(q, k, v, causal):
     _check_qkv(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = tma_ready(q), tma_ready(k), tma_ready(v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -290,6 +317,8 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal):
     if do.stride(-1) != 1:
         do = do.contiguous()
     _check_qkv(q, k, v, do)
+    if fn == "flash_dkv" and q.dtype == torch.bfloat16:
+        q, k, v, do = (tma_ready(x) for x in (q, k, v, do))
     b, sq, h, d = q.shape
     for x in (lse, delta):
         if (x.shape != (b * h, sq, 1) or x.dtype != torch.float32

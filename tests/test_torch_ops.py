@@ -25,6 +25,7 @@ from ray_tpu_torch.ops.attention import (
     flash_dq,
     reference_attention,
     reference_flash_bwd,
+    tma_ready,
 )
 from ray_tpu_torch.ops.decode_attention import (
     decode_attention,
@@ -213,6 +214,26 @@ class TestFlashBackward:
                                        atol=2e-2 * np.abs(b).max(), rtol=0,
                                        err_msg=f"d{name}")
 
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_bf16_forward_rounds_where_the_jax_kernel_rounds(self, causal):
+        """In bf16 the plain forward (out and lse) lands within 2e-2 of the
+        largest value of the Pallas forward in interpret mode, which rounds
+        P to bf16 before P.V as the wgmma kernel does."""
+        rng = np.random.default_rng(13)
+        q, k, v = (_rand(rng, 1, 48, 2, 16) for _ in range(3))
+        jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+        want_out, want_lse = jattn._flash_fwd(*jb, causal, 16 ** -0.5, 16, 16,
+                                              True)
+        out, lse = _flash_fwd(*(_t(x).to(torch.bfloat16) for x in (q, k, v)),
+                              causal)
+        assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        for name, a, b in (("out", out, want_out), ("lse", lse, want_lse)):
+            b = np.asarray(b, np.float32)
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.float().numpy(), b,
+                                       atol=2e-2 * np.abs(b).max(), rtol=0,
+                                       err_msg=name)
+
     def test_backward_refuses_other_devices(self):
         x = torch.empty(1, 4, 2, 64, device="meta")
         lse = torch.empty(2, 4, 1, device="meta")
@@ -302,7 +323,45 @@ class TestDecodeAttention:
                              _t(x["pos"]), 0, k_self=_t(x["ks"]))
 
 
+class TestTmaReady:
+    """``tma_ready`` passes a tensor TMA can read in place and copies the
+    rest."""
+
+    def test_fused_qkv_slices_and_contiguous_pass_uncopied(self):
+        qkv = torch.randn(2, 40, 3, 4, 64).to(torch.bfloat16)
+        for x in (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                  qkv[:, :, 1].contiguous(),
+                  torch.randn(1, 7, 2, 128).to(torch.bfloat16)):
+            assert tma_ready(x).data_ptr() == x.data_ptr()
+
+    @pytest.mark.parametrize("case", ["odd_offset", "odd_s_stride"])
+    def test_unaligned_tensors_come_back_contiguous(self, case):
+        if case == "odd_offset":
+            flat = torch.randn(1 + 2 * 9 * 3 * 64).to(torch.bfloat16)
+            x = flat[1:].view(2, 9, 3, 64)  # base 2 bytes past alignment
+        else:
+            # S stride of 3*64 + 5 elements: no multiple of 8 (16 bytes).
+            x = torch.randn(2, 9, 3 * 64 + 5).to(torch.bfloat16)[
+                :, :, :3 * 64].view(2, 9, 3, 64)
+        y = tma_ready(x)
+        assert y.data_ptr() != x.data_ptr() and y.is_contiguous()
+        assert torch.equal(y, x)
+
+
 class TestBuild:
+    def test_library_name_hashes_shared_headers(self, tmp_path,
+                                                monkeypatch):
+        """Every library's name carries the shared headers (``sm90.cuh``
+        among them), so editing one rebuilds every kernel."""
+        for src in _build.CSRC.iterdir():
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+        monkeypatch.setattr(_build, "CSRC", tmp_path)
+        before = {n: _build.library_path(n) for n in _build.KERNELS}
+        with open(tmp_path / "sm90.cuh", "a") as f:
+            f.write("\n// edited\n")
+        after = {n: _build.library_path(n) for n in _build.KERNELS}
+        assert all(before[n] != after[n] for n in _build.KERNELS)
+
     def test_library_name_hashes_sources_and_flags(self):
         paths = {n: _build.library_path(n) for n in _build.KERNELS}
         assert len(set(paths.values())) == len(_build.KERNELS)

@@ -8,9 +8,12 @@ Phases (none is caught: any failure exits non-zero):
   1. setup: the card's name and power limit; build the CUDA kernels from
      ray_tpu_torch/csrc/ into build/ray_tpu_torch/, print ptxas's register
      and spill report, and count HGMMA (wgmma) and UTMALDG (TMA load)
-     instructions in the SASS of the flash_fwd and flash_bwd libraries
-     (both must be nonzero: the bf16 forward and dK/dV run on them);
-  2. each kernel against its plain PyTorch version on the card: decode and
+     instructions in the SASS of each tensor-core kernel function (the
+     bf16 forward, dQ and dK/dV, at D=64 and 128: both must be nonzero);
+  2. each kernel against its plain PyTorch version on the card: decode
+     (against both plain versions, the plain softmax and the split
+     kernel's recipe, at ragged positions on and around the 256-row split
+     edges; two launches must agree bit for bit) and
      flash forward at the serving shapes of both families (TinyLlama-1.1B:
      4 query heads per kv head; GPT-2 small: one, on strided slices of the
      fused qkv), the flash backward kernels (dQ, dK/dV) at GPT-2 small's
@@ -94,15 +97,16 @@ from ray_tpu_torch.ops.attention import (  # noqa: E402
 from ray_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention,
     reference_decode_attention,
+    reference_decode_attention_split,
 )
 
 TOL = 2e-2  # bf16 tolerance of tests/test_llama_kernels.py:199-200
 # f32: the kernels and the plain versions differ only in summation order.
 TOL_F32 = 1e-4
-# bf16 gradients: the dK/dV kernel rounds P and dS to bf16 where the plain
-# versions (and the JAX kernels) round them, but only dQ keeps dS in f32, and
-# the kernels sum in another order, so a gradient is held at 2e-2 of the
-# largest plain gradient of its tensor.
+# bf16 gradients: the dQ and dK/dV kernels round P and dS to bf16 where the
+# plain versions (and the JAX kernels) round them, but they sum in another
+# order (and the wgmma products accumulate in their own order), so a
+# gradient is held at 2e-2 of the largest plain gradient of its tensor.
 TOL_GRAD = 2e-2
 # Decode shapes of the serving runs of phase 3: layers, slots, query heads,
 # kv heads, head dim.
@@ -139,15 +143,49 @@ def cuobjdump_path() -> str:
 
 
 SASS_OPS = ("HGMMA", "UTMALDG")
+# The kernel functions that run on the tensor cores with TMA-fed tiles (the
+# bf16 designs), by library; each instantiation (D=64, D=128) is checked.
+TENSOR_CORE_KERNELS = {
+    "flash_fwd": ("flash_fwd_wgmma_kernel",),
+    "flash_bwd": ("flash_dq_wgmma_kernel", "flash_dkv_wgmma_kernel"),
+}
 
 
 def sass_counts(name: str) -> dict:
     """How many tensor-core (HGMMA) and TMA-load (UTMALDG) instructions
-    the built library ``name`` holds, from its SASS."""
+    each kernel function of the built library ``name`` holds, from its
+    SASS split at the dump's ``Function :`` headers, keyed by mangled
+    name."""
     sass = subprocess.run(
         [cuobjdump_path(), "-sass", str(_build.library_path(name))],
         capture_output=True, text=True, check=True, timeout=120).stdout
-    return {op: sass.count(op) for op in SASS_OPS}
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                counts[fn][op] += op in line
+    return counts
+
+
+def check_sass(name: str) -> dict:
+    """Every instantiation of the tensor-core kernels of library ``name``
+    must hold HGMMA and UTMALDG; returns their counts."""
+    counts = sass_counts(name)
+    found = {}
+    for kernel in TENSOR_CORE_KERNELS[name]:
+        fns = {fn: c for fn, c in counts.items() if kernel in fn}
+        if len(fns) < 2:
+            raise AssertionError(f"lib{name}: {len(fns)} instantiations of "
+                                 f"{kernel} in the SASS, want D=64 and 128")
+        for fn, c in fns.items():
+            if not all(c.values()):
+                raise AssertionError(f"lib{name} {fn}: SASS counts {c}, "
+                                     f"want every one of {SASS_OPS} > 0")
+        found[kernel] = list(fns.values())
+    return found
 
 
 def event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -203,7 +241,8 @@ def assert_close(got, want, what: str, tol: float = TOL) -> float:
 def check_decode(gen, shape, t_max: int, pos_list, dtype=torch.bfloat16,
                  tol: float = TOL, timed: bool = False):
     """Decode attention at a serving shape ``(L, B, H, Hkv, D)`` with
-    ragged pos; both forms."""
+    ragged pos; both forms, each against both plain versions (the plain
+    softmax and the split kernel's recipe)."""
     n_layer, b, h, hkv, d = shape
     tag = f"decode H={h} Hkv={hkv} T={t_max} {str(dtype)[6:]}"
 
@@ -219,11 +258,17 @@ def check_decode(gen, shape, t_max: int, pos_list, dtype=torch.bfloat16,
         layer = n_layer - 1
         got = decode_attention(q, kc, vc, pos, layer, k_self=k_self,
                                v_self=v_self)
-        want = reference_decode_attention(q, kc, vc, pos, layer, k_self,
-                                          v_self)
-        err = assert_close(got, want, f"{tag} {form}", tol)
-        print(f"{tag} {form}: max_abs_err {err}", flush=True)
-        rec[form] = {"max_abs_err": err}
+        if not torch.equal(got, decode_attention(q, kc, vc, pos, layer,
+                                                 k_self=k_self, v_self=v_self)):
+            raise AssertionError(f"{tag} {form}: two launches differ")
+        args = (q, kc, vc, pos, layer, k_self, v_self)
+        err = assert_close(got, reference_decode_attention(*args),
+                           f"{tag} {form}", tol)
+        split_err = assert_close(got, reference_decode_attention_split(*args),
+                                 f"{tag} {form} vs split recipe", tol)
+        print(f"{tag} {form}: max_abs_err {err} (split recipe {split_err})",
+              flush=True)
+        rec[form] = {"max_abs_err": err, "max_abs_err_split": split_err}
         if not timed:
             continue
         # Cycle through the layers so each launch finds its prefix cold in
@@ -656,7 +701,7 @@ def path_parity(cfg, tol: float):
 
 # ------------------------------------------------------------------ phase 5
 # The kernels a bf16 train step launches, by their names in the profile.
-ATTENTION_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_kernel",
+ATTENTION_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
                      "flash_dkv_wgmma_kernel")
 # Kernel classes of a train step, by substrings of the kernel's name; the
 # first class that matches takes the kernel.
@@ -889,17 +934,16 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports)} "
           f"(others reused)", flush=True)
     for name, log in reports.items():
+        fn = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line.strip()
             if "Used" in line or "spill" in line or "Potential" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
-    # The bf16 flash forward and dK/dV run on the tensor cores (HGMMA) with
-    # TMA-fed tiles (UTMALDG): both must be in the built libraries.
-    sass = {name: sass_counts(name) for name in ("flash_fwd", "flash_bwd")}
+                print(f"  {name}: {fn}: {line.strip()}", flush=True)
+    # The bf16 flash forward, dQ and dK/dV run on the tensor cores (HGMMA)
+    # with TMA-fed tiles (UTMALDG): both must be in each kernel's own SASS.
+    sass = {name: check_sass(name) for name in TENSOR_CORE_KERNELS}
     print(f"sass {json.dumps(sass)}", flush=True)
-    for name, counts in sass.items():
-        if not all(counts.values()):
-            raise AssertionError(f"lib{name}: SASS counts {counts}, want "
-                                 f"every one of {SASS_OPS} > 0")
 
     # Phase 2: each kernel against its plain version.
     # Cache lengths: 2048 and 1024 are the engines' max_seq_len; 1000 is no
@@ -916,6 +960,12 @@ def main() -> int:
     check_decode(gen, GPT2_DECODE, 1024, gpt2_pos, **f32)
     check_decode(gen, GPT2_DECODE, 1000, [0, 2, 64, 128, 500, 640, 998, 999],
                  **f32)
+    # The split kernel's edges (256-row splits): live lengths of 0, 1, one
+    # split exactly, one split and a row, and rows of very different lengths.
+    split_pos = [0, 1, 255, 256, 257, 511, 1279, 2047]
+    check_decode(gen, TINYLLAMA_DECODE, 2048, split_pos)
+    check_decode(gen, TINYLLAMA_DECODE, 2048, split_pos, **f32)
+    check_decode(gen, GPT2_DECODE, 1000, [0, 1, 255, 256, 257, 767, 768, 999])
     flash_runs = [check_flash(gen, 2048, True, timed=True),
                   check_flash(gen, 1000, True, timed=True),
                   check_flash(gen, 512, False, timed=True),
@@ -1012,13 +1062,16 @@ def main() -> int:
     kernels = [
         {"name": "decode_attention", "route": "cuda",
          "source": "ray_tpu_torch/csrc/decode_attention.cu",
-         "replaces": "ray_tpu/ops/decode_attention.py:95", "design": "fma",
+         "replaces": "ray_tpu/ops/decode_attention.py:95", "design": "split-t",
          "launches": main_launches["decode_attention"],
          "max_abs_err": dec["self"]["max_abs_err"],
          "ms": dec["self"]["ms"], "event_ms": dec["self"]["event_ms"],
          "plain_ms": dec["self"]["plain_ms"],
          "bound_ms": dec["self"]["bound_ms"], "bound_by": "bytes",
-         "library_ms": dec["library_ms"]},
+         "library_ms": dec["library_ms"],
+         "gpt2_shape": {k: dec_gpt2["self"][k] for k in (
+             "ms", "event_ms", "plain_ms", "bound_ms", "max_abs_err")}
+         | {"library_ms": dec_gpt2["library_ms"]}},
         {"name": "flash_fwd", "route": "cuda",
          "source": "ray_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "ray_tpu/ops/attention.py:55", "design": "wgmma+tma",
@@ -1034,7 +1087,7 @@ def main() -> int:
              "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err")}},
     ]
-    for name, key, line, design in (("flash_dq", "dq", 144, "fma"),
+    for name, key, line, design in (("flash_dq", "dq", 144, "wgmma+tma"),
                                     ("flash_dkv", "dkv", 191, "wgmma+tma")):
         rec = bwd_train[key]
         errs = [bwd_train["max_abs_err"][g]

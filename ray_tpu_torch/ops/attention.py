@@ -21,10 +21,10 @@ Port of ``ray_tpu/ops/attention.py``:
     CPU as on the card.
 
 Which design runs is fixed by the dtype inside the C entry points: bf16
-goes to the tensor-core kernels (wgmma on TMA-fed tiles) for the forward
-and dK/dV, f32 to the FMA kernels (wgmma on f32 would run in TF32); dQ runs
-its FMA kernel in both.  ``tma_ready`` copies a bf16 tensor that TMA cannot
-read in place before it reaches a TMA kernel.
+goes to the tensor-core kernels (wgmma on TMA-fed tiles) for the forward,
+dQ and dK/dV, f32 to the FMA kernels (wgmma on f32 would run in TF32).
+``tma_ready`` copies a bf16 tensor that TMA cannot read in place before it
+reaches a TMA kernel.
 
 The plain versions' f32 matmuls assume PyTorch's default
 ``torch.backends.cuda.matmul.allow_tf32 = False`` (full f32) when they run
@@ -317,7 +317,7 @@ def _launch_bwd(fn, q, k, v, do, lse, delta, outs, causal):
     if do.stride(-1) != 1:
         do = do.contiguous()
     _check_qkv(q, k, v, do)
-    if fn == "flash_dkv" and q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16:
         q, k, v, do = (tma_ready(x) for x in (q, k, v, do))
     b, sq, h, d = q.shape
     for x in (lse, delta):

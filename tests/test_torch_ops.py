@@ -28,8 +28,11 @@ from ray_tpu_torch.ops.attention import (
     tma_ready,
 )
 from ray_tpu_torch.ops.decode_attention import (
+    SPLIT_T,
     decode_attention,
     reference_decode_attention,
+    reference_decode_attention_split,
+    split_plan,
     write_token_to_cache,
 )
 
@@ -321,6 +324,69 @@ class TestDecodeAttention:
         with pytest.raises(ValueError, match="both"):
             decode_attention(_t(x["q"]), _t(x["k"]), _t(x["v"]),
                              _t(x["pos"]), 0, k_self=_t(x["ks"]))
+
+
+def _split_data(seed, t, h, hkv, b=8, d=16, layers=2):
+    """Ragged rows around the split edges: 0, 1, SPLIT_T - 1, SPLIT_T,
+    SPLIT_T + 1, a mid-cache row, T_max - 1 and T_max - 2."""
+    x = _decode_data(seed, b=b, t=t, h=h, hkv=hkv, d=d, layers=layers)
+    x["pos"] = np.array([0, 1, SPLIT_T - 1, SPLIT_T, SPLIT_T + 1, t // 2 + 3,
+                         t - 1, t - 2], np.int32)[:b]
+    return x
+
+
+class TestDecodeSplit:
+    """The split kernel's recipe (``reference_decode_attention_split``)
+    against the JAX decode kernel and the plain version."""
+
+    @pytest.mark.parametrize("t", [1000, 2048])
+    @pytest.mark.parametrize("h,hkv", [(8, 2), (4, 4)], ids=["g4", "g1"])
+    def test_self_form_matches_jax_kernel(self, t, h, hkv):
+        x = _split_data(20, t, h, hkv)
+        want = jdec.decode_attention(
+            jnp.asarray(x["q"]), jnp.asarray(x["k"]), jnp.asarray(x["v"]),
+            jnp.asarray(x["pos"]), 1, k_self=jnp.asarray(x["ks"]),
+            v_self=jnp.asarray(x["vs"]), block_t=200 if t == 1000 else 256,
+            kernel=True, interpret=True,
+        )
+        got = reference_decode_attention_split(
+            _t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["pos"]), 1,
+            _t(x["ks"]), _t(x["vs"]))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=DECODE_TOL, atol=DECODE_TOL)
+
+    @pytest.mark.parametrize("t", [1000, 2048])
+    @pytest.mark.parametrize("h,hkv", [(8, 2), (4, 4)], ids=["g4", "g1"])
+    def test_cache_only_form_matches_plain(self, t, h, hkv):
+        """Without self, attending [0, pos]: pos = T_max - 1 reads the whole
+        cache, pos = SPLIT_T - 1 exactly one split."""
+        x = _split_data(21, t, h, hkv)
+        args = (_t(x["q"]), _t(x["k"]), _t(x["v"]), _t(x["pos"]), 0)
+        np.testing.assert_allclose(
+            reference_decode_attention_split(*args).numpy(),
+            reference_decode_attention(*args).numpy(),
+            rtol=DECODE_TOL, atol=DECODE_TOL)
+
+    def test_pos_zero_with_self_is_the_self_token(self):
+        """No live cache row: the output is v_self (no split is merged, so
+        no exp(-inf - -inf) reaches it)."""
+        x = _split_data(22, 600, 8, 2)
+        pos = torch.zeros(8, dtype=torch.int32)
+        out = reference_decode_attention_split(
+            _t(x["q"]), _t(x["k"]), _t(x["v"]), pos, 0, _t(x["ks"]),
+            _t(x["vs"]))
+        assert torch.isfinite(out).all()
+        np.testing.assert_allclose(out.numpy(), np.repeat(x["vs"], 4, axis=1),
+                                   atol=DECODE_TOL)
+
+    @pytest.mark.parametrize("t_max", [1, 255, 256, 257, 512, 1000, 1024,
+                                       2048, 2049])
+    def test_split_plan_covers_every_row_once(self, t_max):
+        plan = split_plan(t_max)
+        assert len(plan) == -(-t_max // SPLIT_T)
+        rows = [r for start, stop in plan for r in range(start, stop)]
+        assert rows == list(range(t_max))
+        assert all(0 < stop - start <= SPLIT_T for start, stop in plan)
 
 
 class TestTmaReady:

@@ -40,7 +40,20 @@ Phases (none is caught: any failure exits non-zero):
      attention kernels must show device time;
   6. training parity: loss and every gradient leaf of both families at 2
      layers, through the kernels and through the plain versions (f32 at
-     1e-4; bf16 launch by launch at 2e-2, leaves printed).
+     1e-4; bf16 launch by launch at 2e-2, leaves printed);
+  7. continuous batching at full width: a TinyLlama-1.1B-shaped prefill
+     replica and batched decode replica (bf16, buckets 1, 2, 4, 8, each
+     bucket's decode step captured in a CUDA graph first) behind a local
+     router; 16 prompts from 16 client threads 50 ms apart, 64 greedy
+     tokens each, then 4 of them again as prefix-cache hits.  Tokens/s,
+     the decode step per bucket, the bucket trace (must reach 8 and
+     shrink), a profiled window of 10 full-bucket steps (22 decode kernels
+     a replayed step, by name), graph replay against the eager step
+     (logits at 2e-2, both timed) and how many outputs equal solo runs
+     (printed, not asserted: bf16 rounds by batch shape).  Then f32 token
+     parity with solo ``TorchLLMEngine`` runs for both families at 2
+     layers, across buckets 1 -> 8 with a preemption, a cancel and a
+     prefix-cache hit.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -56,6 +69,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -66,10 +80,17 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from ray_tpu_torch.llm import (  # noqa: E402
+    BatchedDecodeReplica,
+    ContinuousBatchingConfig,
+    ContinuousBatchingEngine,
+    DisaggRouter,
     EngineConfig,
     EngineStats,
+    PrefillEngine,
+    PrefillReplica,
     SamplingParams,
     TorchLLMEngine,
+    encode_prompt,
 )
 from ray_tpu_torch.models import (  # noqa: E402
     GPT2Config,
@@ -244,7 +265,7 @@ def check_decode(gen, shape, t_max: int, pos_list, dtype=torch.bfloat16,
     ragged pos; both forms, each against both plain versions (the plain
     softmax and the split kernel's recipe)."""
     n_layer, b, h, hkv, d = shape
-    tag = f"decode H={h} Hkv={hkv} T={t_max} {str(dtype)[6:]}"
+    tag = f"decode B={b} H={h} Hkv={hkv} T={t_max} {str(dtype)[6:]}"
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
@@ -916,6 +937,378 @@ def train_parity(cfg, batch: int, seq: int):
     return rep
 
 
+# ------------------------------------------------------------------ phase 7
+# The kernels' function names in the profile (the flash forward's name is
+# shared by its bf16 and f32 kernels).
+DECODE_KERNEL = "decode_attention_kernel"
+FLASH_KERNEL = "flash_fwd"
+
+
+def graph_launches(programs: dict) -> int:
+    """Decode-kernel launches of the graph path: each bucket's launches per
+    captured graph times its replays, from ``stats()["programs"]``."""
+    return sum(p["launches_per_step"].get("decode_attention", 0) * p["steps"]
+               for p in programs.values())
+
+
+def program_deltas(before: dict, after: dict) -> dict:
+    """Per-bucket steps and decode seconds between two ``stats()``."""
+    out = {}
+    for b, p in after.items():
+        q = before.get(b, {"steps": 0, "decode_s": 0.0})
+        steps = p["steps"] - q["steps"]
+        out[b] = {"steps": steps, "decode_s": p["decode_s"] - q["decode_s"],
+                  "launches_per_step": p["launches_per_step"],
+                  "mean_step_ms": ((p["decode_s"] - q["decode_s"]) / steps
+                                   * 1e3 if steps else None)}
+    return out
+
+
+def submit_local(engine, pre, prompt: str, sp) -> int:
+    """Prefill on ``pre`` and hand the pages to ``engine`` (no router)."""
+    from ray_tpu_torch.llm.disagg import fetch_prefill_kv
+
+    meta = pre.prefill(prompt, sp)
+    k, v = fetch_prefill_kv(meta)
+    return engine.submit_kv(meta, k, v)
+
+
+def profile_cb(engine, pre, prompts, steps: int):
+    """A full bucket of 8 stepped by hand on a stopped engine: host wall
+    time per step (unprofiled), then kernel time, busy share and launches
+    per step from torch.profiler over as many steps, the decode kernel
+    counted by name.  Then graph replay against the eager decode step at
+    the same bucket, on identical inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sp = SamplingParams(max_tokens=3 * steps + 30, temperature=0.0,
+                        stop_token=-1)
+    rids = [submit_local(engine, pre, p, sp) for p in prompts]
+    while engine.stats()["occupancy"] < len(prompts):
+        engine.step()
+    if engine.bucket != 8:
+        raise AssertionError(f"profile window at bucket {engine.bucket}")
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    decode_kernels = sum(e.count for e in events
+                         if DECODE_KERNEL in e.key) / steps
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:6]
+    rep = {
+        "batch": len(prompts), "steps": steps,
+        "wall_ms_per_step": wall_ms,
+        "profiled_wall_ms_per_step": prof_wall_ms,
+        "device_ms_per_step": device_ms if device_ms > 0 else None,
+        "device_busy_share": device_ms / wall_ms if device_ms > 0 else None,
+        "kernel_launches_per_step": sum(e.count for e in events) / steps,
+        "decode_kernels_per_step": decode_kernels,
+        "top_kernels_ms_per_step": [
+            [e.key[:60], e.self_device_time_total / 1e3 / steps]
+            for e in top],
+    }
+    # Graph replay against the eager step on the live bucket-8 inputs.  A
+    # step recomputes and rewrites each row's k/v at its position from the
+    # same inputs, so repeating it changes nothing.
+    fam, cfg = engine.family, engine.cfg.model
+    prog = engine.decode_program(8)
+
+    def eager():
+        return fam.decode_step(engine.params, prog.inputs[0], prog.inputs[1],
+                               prog.cache, cfg)[0]
+
+    want = eager().clone()
+    prog.graph.replay()
+    got = prog.logits.clone()
+    tol = TOL_F32 if cfg.dtype == "float32" else TOL
+    rep["graph_vs_eager_max_abs_err"] = assert_close(
+        got, want, "graph replay vs eager decode step", tol)
+    rep["graph_vs_eager_tolerance"] = tol
+    rep["eager_step_ms"] = event_ms(eager, 20)
+    rep["graph_step_ms"] = event_ms(prog.graph.replay, 20)
+    for rid in rids:
+        engine.cancel(rid)
+    while engine.has_unfinished():
+        engine.step()
+    for rid in rids:
+        engine.result(rid)
+    return rep
+
+
+def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
+    """Continuous batching at full width: TinyLlama-1.1B-shaped, bf16,
+    buckets 1-8 captured first; ``prompts`` from one client thread each,
+    started ``stagger_s`` apart, through the router; then ``repeats`` of
+    them again, which must be prefix-cache hits (no prefill).  The report
+    is printed before any check of it can fail."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = LlamaConfig.tinyllama_1b()
+    params = model_family(cfg).init(
+        torch.Generator("cuda").manual_seed(SEED + 8), cfg)
+    # One prefill and one batched decode replica sharing ``params``, behind
+    # a local router; every bucket's decode step is captured before the
+    # loop starts.  The prefix cache holds the whole burst's prompts (at
+    # most 16 x 1,501 tokens, 45 KB of host memory a token at this width).
+    ecfg = EngineConfig(model=cfg, max_batch_size=8, max_seq_len=2048,
+                        seed=SEED, param_loader=lambda: params)
+    pre = PrefillReplica(ecfg)
+    dec = BatchedDecodeReplica(
+        ecfg, ContinuousBatchingConfig(prefix_cache_tokens=32768), warm=True)
+    router = DisaggRouter([pre], [dec])
+    engine = dec.engine
+    st0 = engine.stats()
+    captured = {b: p["capture_s"] for b, p in st0["programs"].items()}
+    if sorted(captured) != [1, 2, 4, 8] or not all(
+            p["graph"] for p in st0["programs"].values()):
+        raise AssertionError(f"buckets captured: {st0['programs']}")
+    print(f"cb capture seconds by bucket {captured}", flush=True)
+    sp = SamplingParams(max_tokens=max_tokens, temperature=0.0, stop_token=-1)
+    router.generate("warm up", SamplingParams(max_tokens=2))
+    torch.cuda.synchronize()
+    # Each prefill's host time, as the client threads see it.
+    prefill_ms = []
+    prefill = pre.engine.prefill
+
+    def timed_prefill(*args, **kwargs):
+        t = time.perf_counter()
+        out = prefill(*args, **kwargs)
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    pre.engine.prefill = timed_prefill
+    before = engine.stats()
+    trace_from = len(engine.bucket_trace)
+    outs, lat = [None] * len(prompts), [None] * len(prompts)
+    errors = []
+
+    def client(i):
+        t = time.perf_counter()
+        try:
+            outs[i] = router.generate(prompts[i], sp, timeout_s=600)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        lat[i] = time.perf_counter() - t
+
+    reset_counters()
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    # The burst runs under the profiler's kernel trace (CUDA activity only,
+    # no host-op recording), so its kernels, graph replays' included, are
+    # counted on the card by name.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+            time.sleep(stagger_s)
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pre.engine.prefill = prefill
+    flash_run = flash_attention.launches
+    eager_decode = decode_attention.launches
+    if errors or any(o is None for o in outs):
+        raise AssertionError(f"cb serve failed: {errors}")
+    mid = engine.stats()
+    traced = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced_decode = sum(e.count for e in traced if DECODE_KERNEL in e.key)
+    traced_flash = sum(e.count for e in traced if FLASH_KERNEL in e.key)
+    del prof, traced
+    # The repeats: full-coverage prefix hits, so no prefill runs.
+    again = [router.generate(p, sp, timeout_s=600)
+             for p in prompts[:repeats]]
+    end = engine.stats()
+    # Grown under the burst, shrunk after it (the repeats run one at a time).
+    trace = list(engine.bucket_trace)[trace_from - 1:]
+    hits = end["prefix_cache"]["hits"] - mid["prefix_cache"]["hits"]
+    run_programs = program_deltas(before["programs"], mid["programs"])
+    tokens = sum(o["num_generated"] for o in outs)
+    rep = {
+        "requests": len(outs), "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "kernel_trace_on": True,
+        "mean_request_s": float(np.mean(lat)),
+        "max_request_s": float(np.max(lat)),
+        "prefill_ms": prefill_ms,
+        "capture_s": captured,
+        "decode_by_bucket": run_programs,
+        "bucket_trace": trace,
+        "max_occupancy": mid["max_occupancy"],
+        "preempted": mid["preempted"] - before["preempted"],
+        "prefix_cache": end["prefix_cache"],
+        "repeat_hits": hits,
+        "repeats_equal_first": sum(a["token_ids"] == o["token_ids"]
+                                   for a, o in zip(again, outs)),
+        # Kernel launches in the burst: the flash forward counted by its
+        # wrapper and by the trace; the decode kernel by the trace, beside
+        # the wrappers' eager count and each bucket's launches per captured
+        # graph times its replays in the burst.
+        "launches": {
+            "flash_fwd": flash_run,
+            "flash_fwd_traced": traced_flash,
+            "decode_attention_traced": traced_decode,
+            "decode_attention_eager": eager_decode,
+            "decode_attention_graph": graph_launches(run_programs),
+        },
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    print("cb serve " + json.dumps(rep), flush=True)
+    # Checks that leave the later measurements meaningful are gathered and
+    # raised at the end.
+    problems = []
+    if any(o["num_generated"] != max_tokens for o in outs):
+        problems.append(f"a request did not generate exactly {max_tokens} "
+                        "tokens")
+    if any(not 0 <= t < cfg.vocab_size for o in outs for t in o["token_ids"]):
+        problems.append("token id out of the vocabulary")
+    if flash_run != cfg.n_layer * len(prompts):
+        problems.append(f"flash launches {flash_run} != {cfg.n_layer} x "
+                        f"{len(prompts)} prefills")
+    if 8 not in trace or trace[-1] >= 8:
+        problems.append(f"bucket trace {trace}: must reach 8 and shrink")
+    if hits != repeats or flash_attention.launches != flash_run:
+        problems.append(f"{hits} prefix hits for {repeats} repeats, flash "
+                        f"launches {flash_run} -> {flash_attention.launches}")
+    if rep["launches"]["decode_attention_graph"] <= 0:
+        problems.append("the decode kernel ran in no graph replay")
+    if traced_decode != eager_decode + rep["launches"]["decode_attention_graph"]:
+        problems.append(f"{traced_decode} {DECODE_KERNEL} kernels traced in "
+                        f"the burst, want {eager_decode} eager + "
+                        f"{rep['launches']['decode_attention_graph']} replayed")
+    if traced_flash != flash_run:
+        problems.append(f"{traced_flash} {FLASH_KERNEL} kernels traced in the "
+                        f"burst, {flash_run} counted by the wrapper")
+    dec.close()
+    rep["profile"] = profile_cb(engine, pre.engine, prompts[:8], 10)
+    print("cb profile " + json.dumps(rep["profile"]), flush=True)
+    if rep["profile"]["decode_kernels_per_step"] != cfg.n_layer:
+        problems.append(
+            f"{rep['profile']['decode_kernels_per_step']} {DECODE_KERNEL} "
+            f"kernels per replayed step in the profile, want {cfg.n_layer}")
+    # bf16 at full width: batch shape changes rounding, so outputs are only
+    # counted against solo runs, not asserted.
+    solo = TorchLLMEngine(dataclasses.replace(ecfg, max_batch_size=1))
+    want = solo.generate(prompts, sp)
+    rep["match_solo"] = sum(w["token_ids"] == o["token_ids"]
+                            for w, o in zip(want, outs))
+    print(f"cb outputs equal to solo runs: {rep['match_solo']} of "
+          f"{len(outs)}", flush=True)
+    if problems:
+        raise AssertionError("cb serve: " + "; ".join(problems))
+    del solo, engine, dec, pre, router, params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def logit_gap(fam, params, cfg, prompt_ids, want, step: int) -> dict:
+    """The solo run's logits at the first diverging step: prefill, then
+    decode the expected tokens one at a time at batch 1."""
+    n, dev = len(prompt_ids), params["wte"].device
+    cache = fam.init_cache(cfg, 1, n + len(want) + 1, dev)
+    logits, _ = fam.prefill(params, torch.tensor([prompt_ids], device=dev),
+                            torch.tensor([n], device=dev), cache, cfg)
+    for i in range(step):
+        logits, _ = fam.decode_step(
+            params, torch.tensor([want[i]], device=dev),
+            torch.tensor([n + i], dtype=torch.int32, device=dev), cache, cfg)
+    top = torch.topk(logits[0], 2)
+    return {"step": step, "top2_logits": top.values.tolist(),
+            "top2_ids": top.indices.tolist()}
+
+
+def cb_parity(model_cfg):
+    """f32 token parity of the continuous-batching path with solo
+    ``TorchLLMEngine`` runs: staggered admissions across buckets 1 -> 8,
+    a forced preemption (starvation timeout 0, stepped by hand), a cancel
+    and a prefix-cache hit.  Every finished result must equal its solo
+    run."""
+    fam = model_family(model_cfg)
+    params = fam.init(torch.Generator("cuda").manual_seed(SEED + 10),
+                      model_cfg)
+    cb = ContinuousBatchingConfig(starvation_timeout_s=0.0, shrink_patience=4,
+                                  preempt_min_tokens=2)
+    ecfg = EngineConfig(model=model_cfg, max_batch_size=8, max_seq_len=512,
+                        seed=SEED, param_loader=lambda: params)
+    pre = PrefillEngine(ecfg)
+    engine = ContinuousBatchingEngine(ecfg, cb)
+    # One admission every 2 steps and lengths growing by 2 tokens: the
+    # 11th and 12th arrive with all 8 slots busy, so the guard preempts.
+    prompts = make_prompts(12, 20, 300, SEED + 11)
+    sps = [SamplingParams(max_tokens=16 + 2 * i, temperature=0.0,
+                          stop_token=-1) for i in range(len(prompts))]
+    reset_counters()
+    rids, step, cancelled, cached = [], 0, None, None
+    while len(rids) < len(prompts) or engine.has_unfinished():
+        if len(rids) < len(prompts) and step % 2 == 0:
+            i = len(rids)
+            rids.append(submit_local(engine, pre, prompts[i], sps[i]))
+        engine.step()
+        step += 1
+        if step == 9:
+            cancelled = rids[3]
+            engine.cancel(cancelled)
+        if cached is None and rids and rids[0] in engine._finished:
+            cached = engine.submit_cached(prompts[0], sps[0])
+            if cached is None:
+                raise AssertionError("prefix cache missed a finished prompt")
+    results = {rid: engine.result(rid) for rid in rids + [cached]}
+    st = engine.stats()
+    flash_cb = flash_attention.launches
+    if flash_cb != model_cfg.n_layer * len(prompts):
+        raise AssertionError(f"flash launches {flash_cb} for {len(prompts)} "
+                             "prefills")
+    trace = list(engine.bucket_trace)
+    if not results[cancelled].get("cancelled"):
+        raise AssertionError(f"request {cancelled} was not cancelled")
+    if st["preempted"] < 1 or 8 not in trace or trace[-1] >= 8:
+        raise AssertionError(f"preempted {st['preempted']}, trace {trace}")
+    if st["prefix_cache"]["hits"] != 1:
+        raise AssertionError(f"prefix cache {st['prefix_cache']}")
+    solo = TorchLLMEngine(dataclasses.replace(ecfg, max_batch_size=1))
+    checks = [(rid, i) for i, rid in enumerate(rids) if rid != cancelled]
+    checks.append((cached, 0))
+    mismatches = []
+    for rid, i in checks:
+        [want] = solo.generate([prompts[i]], sps[i])
+        got = results[rid]["token_ids"]
+        if got != want["token_ids"]:
+            first = next((j for j, (a, b) in enumerate(
+                zip(got, want["token_ids"])) if a != b),
+                min(len(got), len(want["token_ids"])))
+            ids = encode_prompt(engine.tokenizer, prompts[i], 512)
+            mismatches.append({"request": rid, "prompt": i, "got": got,
+                               "want": want["token_ids"],
+                               **logit_gap(fam, params, model_cfg, ids,
+                                           want["token_ids"], first)})
+    if mismatches:
+        raise AssertionError(f"cb parity {type(model_cfg).__name__}: "
+                             f"{json.dumps(mismatches)}")
+    rep = {"requests": len(checks), "cancelled": 1,
+           "preempted": st["preempted"], "prefix_hits": 1,
+           "bucket_trace": trace,
+           "graph_launches": graph_launches(st["programs"]),
+           "flash_fwd": flash_cb}
+    del engine, pre, solo, params
+    torch.cuda.empty_cache()
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -966,6 +1359,19 @@ def main() -> int:
     check_decode(gen, TINYLLAMA_DECODE, 2048, split_pos)
     check_decode(gen, TINYLLAMA_DECODE, 2048, split_pos, **f32)
     check_decode(gen, GPT2_DECODE, 1000, [0, 1, 255, 256, 257, 767, 768, 999])
+    # The other buckets phase 7 replays (B = 1, 2, 4) at TinyLlama's width,
+    # on every other ragged and split-edge position of the lists above.
+    dec_buckets = {}
+    for b in (1, 2, 4):
+        every = 8 // b
+        shape = TINYLLAMA_DECODE[:1] + (b,) + TINYLLAMA_DECODE[2:]
+        for pos_b in sorted({tuple(p[k::every]) for p in (llama_pos, split_pos)
+                             for k in (0, every - 1)}):
+            for kw in ({}, f32):
+                rec = check_decode(gen, shape, 2048, list(pos_b), **kw)
+                dec_buckets[f"B={b} pos={list(pos_b)} "
+                            f"{str(kw.get('dtype', torch.bfloat16))[6:]}"] = \
+                    max(r["max_abs_err"] for r in rec.values())
     flash_runs = [check_flash(gen, 2048, True, timed=True),
                   check_flash(gen, 1000, True, timed=True),
                   check_flash(gen, 512, False, timed=True),
@@ -993,6 +1399,7 @@ def main() -> int:
                  check_flash_bwd(gen, 1, 32, 512, False, d=128)]
     bwd_train = bwd_runs[0]
     print("phase2 " + json.dumps({"decode": dec, "decode_gpt2": dec_gpt2,
+                                  "decode_buckets": dec_buckets,
                                   "flash": flash_runs,
                                   "flash_train_shape": flash_train,
                                   "flash_d128": flash_d128,
@@ -1056,6 +1463,25 @@ def main() -> int:
             print(f"{what} (2 layers, B={batch} x S={seq}): {held}; "
                   + json.dumps(rep), flush=True)
 
+    # Phase 7: continuous batching at full width, then f32 token parity.
+    cb = cb_serve(make_prompts(16, 100, 1500, SEED + 12), 64, 0.05, 4)
+    prof = cb["profile"]
+    print(f"cb tinyllama_1b on {card}: {cb['tokens_per_s']:.1f} tokens/s "
+          f"(under the kernel trace); "
+          f"mean decode step ms by bucket "
+          f"{ {b: p['mean_step_ms'] for b, p in cb['decode_by_bucket'].items()} }"
+          f"; bucket 8 step {prof['graph_step_ms']:.3f} ms as a graph replay "
+          f"against {prof['eager_step_ms']:.3f} ms eager; busy share "
+          f"{prof['device_busy_share']:.3f} of {prof['wall_ms_per_step']:.3f} "
+          f"ms a full-bucket step", flush=True)
+    print("cb tinyllama_1b " + json.dumps(cb), flush=True)
+    for cfg in (LlamaConfig.tinyllama_1b(n_layer=2, dtype="float32"),
+                dataclasses.replace(GPT2Config.small(dtype="float32"),
+                                    n_layer=2)):
+        rep = cb_parity(cfg)
+        print(f"cb parity {type(cfg).__name__} float32 (2 layers): every "
+              f"result equals its solo run; " + json.dumps(rep), flush=True)
+
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
     # cores fed by TMA, or f32 FMAs (f32 runs FMAs everywhere).
@@ -1064,6 +1490,8 @@ def main() -> int:
          "source": "ray_tpu_torch/csrc/decode_attention.cu",
          "replaces": "ray_tpu/ops/decode_attention.py:95", "design": "split-t",
          "launches": main_launches["decode_attention"],
+         # Phase 7: counted by name in the burst's kernel trace.
+         "launches_cb": cb["launches"]["decode_attention_traced"],
          "max_abs_err": dec["self"]["max_abs_err"],
          "ms": dec["self"]["ms"], "event_ms": dec["self"]["event_ms"],
          "plain_ms": dec["self"]["plain_ms"],
@@ -1077,6 +1505,7 @@ def main() -> int:
          "replaces": "ray_tpu/ops/attention.py:55", "design": "wgmma+tma",
          "launches": main_launches["flash_fwd"],
          "launches_train_gpt2_small": train_launches["flash_fwd"],
+         "launches_cb": cb["launches"]["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],

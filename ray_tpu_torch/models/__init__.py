@@ -7,6 +7,7 @@ from typing import Any as _Any, Callable as _Callable
 
 from .gpt2 import GPT2Config, gpt2_apply, gpt2_init, gpt2_loss  # noqa: F401
 from .gpt2_decode import (  # noqa: F401
+    gpt2_decode_multi,
     gpt2_decode_step,
     gpt2_init_cache,
     gpt2_prefill,

@@ -110,6 +110,25 @@ def gpt2_decode_step(
     return logits.float(), cache
 
 
+@torch.inference_mode()
+def gpt2_decode_multi(
+    params: ParamTree, tokens, pos, cache, cfg: GPT2Config, n_steps: int
+):
+    """Multi-step greedy decode: ``n_steps`` tokens with the argmax on the
+    device and no host sync between steps (the JAX version's ``lax.scan``
+    written out as a loop).  Returns (tokens_out [n_steps, B] int32,
+    next_tokens [B], next_pos [B], the cache, updated in place)."""
+    toks, p = tokens, pos
+    out = torch.empty((n_steps, tokens.shape[0]), dtype=torch.int32,
+                      device=tokens.device)
+    for i in range(n_steps):
+        logits, cache = gpt2_decode_step(params, toks, p, cache, cfg)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        out[i] = toks
+        p = p + 1
+    return out, toks, p, cache
+
+
 def sample_logits(logits, gen: Optional[torch.Generator], temperature: float,
                   top_k: int = 0, top_p: float = 1.0):
     """Temperature / top-k / top-p sampling on [B, V] logits (greedy when

@@ -217,9 +217,10 @@ def _launch(q, k_cache, v_cache, pos, layer, k_self, v_self):
     pos32 = pos.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     n_split = len(split_plan(t))
-    part, counter = _scratch(q.device, b * hkv, n_split, (h // hkv) * (d + 2))
-    lib = _build.load("decode_attention", _SIGNATURE)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counter = _scratch(q.device, stream, b * hkv, n_split,
+                             (h // hkv) * (d + 2))
+    lib = _build.load("decode_attention", _SIGNATURE)
     code = lib.decode_attention(
         DTYPE_CODES[dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), pos32.data_ptr(),
@@ -233,15 +234,21 @@ def _launch(q, k_cache, v_cache, pos, layer, k_self, v_self):
     return out
 
 
-# (device, B*Hkv, n_split, floats a partial) -> (partials, counters).  The
-# kernel leaves the counters at 0, so nothing is cleared per call.  The
-# buffers are reused by the next call of the same shape, which therefore
-# assumes calls on one stream at a time, in order: how the engine calls it.
+# (device, stream, B*Hkv, n_split, floats a partial) -> (partials,
+# counters).  The kernel leaves the counters at 0, so nothing is cleared per
+# call.  The buffers are reused by the next call of the same shape on the
+# same stream, which runs after it in stream order; calls on two streams
+# (two engines in one process, or a CUDA graph captured on its own stream)
+# never share them.  A graph bakes in the addresses of the buffers its
+# capture used, so its capture stream's entry must be made before the
+# capture, by a warm-up call on that stream, and lives until the stream's
+# owner drops it with ``release_scratch`` (a continuous-batching engine does
+# so when it is collected, graphs and all).
 _SCRATCH = {}
 
 
-def _scratch(device, rows: int, n_split: int, floats: int):
-    key = (device, rows, n_split, floats)
+def _scratch(device, stream: int, rows: int, n_split: int, floats: int):
+    key = (device, stream, rows, n_split, floats)
     bufs = _SCRATCH.get(key)
     if bufs is None:
         bufs = (torch.empty((rows, n_split, floats), dtype=torch.float32,
@@ -249,3 +256,10 @@ def _scratch(device, rows: int, n_split: int, floats: int):
                 torch.zeros(rows, dtype=torch.int32, device=device))
         _SCRATCH[key] = bufs
     return bufs
+
+
+def release_scratch(stream: int) -> None:
+    """Drop the scratch of every shape made for calls on ``stream``.  Only
+    for a stream no call or graph will use again."""
+    for key in [k for k in _SCRATCH if k[1] == stream]:
+        del _SCRATCH[key]

@@ -176,3 +176,50 @@ assert not bad, bad
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 14
+
+
+def _forbidden_imports(path):
+    """Every ``import``/``from ... import`` of jax, jaxlib or ray_tpu (not
+    ray_tpu_torch) in ``path``, at any depth: inside function bodies too,
+    where importing the module alone never runs them."""
+    import ast
+
+    tree = ast.parse(open(path).read(), filename=path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "ray_tpu"):
+                found.append(f"{path}:{node.lineno}: {name}")
+    return found
+
+
+def test_port_sources_import_no_jax_or_ray_tpu_at_any_depth():
+    """An AST scan of every module of the port and of chip_smoke.py."""
+    pkg = os.path.join(REPO, "ray_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(pkg):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) >= 20
+    bad = [hit for path in sorted(paths) for hit in _forbidden_imports(path)]
+    assert not bad, bad
+
+
+def test_import_scan_finds_imports_in_function_bodies(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import ray_tpu_torch.llm\n"
+                   "def f():\n"
+                   "    from ray_tpu.util import flight_recorder\n"
+                   "    import jax.numpy as jnp\n"
+                   "    if True:\n"
+                   "        import jaxlib\n"
+                   "    from . import sibling\n")
+    hits = _forbidden_imports(str(src))
+    assert [h.split(": ")[1] for h in hits] == ["ray_tpu.util", "jax.numpy",
+                                                "jaxlib"]

@@ -66,7 +66,24 @@ Phases (none is caught: any failure exits non-zero):
      4 prompts as the same engine here, with its decode and flash-forward
      kernels launched in that worker.  Prints the task round trip, the
      actor call, put/get GB/s, device_fetch ms and GB/s, and the worker
-     cold start.
+     cold start;
+  9. Serve and the OpenAI apps at TinyLlama-1.1B's width (bf16, phase 7's
+     seeded weights, made by each engine), under
+     ``ray_tpu_torch.init(num_cpus=4)``: (a) ``build_openai_app`` with one
+     half-card replica behind the HTTP proxy: a prompt alone must give the
+     greedy tokens of the same engine in this process, then 4 completions and 4 chats at
+     once and one streamed completion (object fields, usage counts, SSE
+     frames ending in ``[DONE]`` after a ``stop`` chunk, streamed text
+     equal to the unary text; launches in the replica); (b) prefill and
+     batched decode, each in its own half-card actor: through
+     ``DisaggRouter`` over phase-local subclasses that time and count
+     their work, a request alone must give phase 7's in-process tokens,
+     then phase 7's burst (TTFT, prefill, KV handoff per request, flash
+     launches in the prefill actor, 22 decode kernels a replayed step);
+     then ``build_disagg_openai_app`` over HTTP with every bucket captured
+     first: the burst, 4 repeats that must be router prefix hits, and a
+     streamed request whose trace gathers spans from 3 processes.
+     Tokens/s in phase 9 are read with no kernel trace.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -94,6 +111,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from ray_tpu_torch.llm import (  # noqa: E402
     BatchedDecodeReplica,
+    ByteTokenizer,
     ContinuousBatchingConfig,
     ContinuousBatchingEngine,
     DisaggRouter,
@@ -103,8 +121,12 @@ from ray_tpu_torch.llm import (  # noqa: E402
     PrefillReplica,
     SamplingParams,
     TorchLLMEngine,
+    build_disagg_openai_app,
+    build_openai_app,
     encode_prompt,
 )
+from ray_tpu_torch.llm import serve_app  # noqa: E402
+from ray_tpu_torch.llm.continuous_batching import PrefixKVCache  # noqa: E402
 from ray_tpu_torch.models import (  # noqa: E402
     GPT2Config,
     LlamaConfig,
@@ -968,6 +990,8 @@ def train_parity(cfg, batch: int, seq: int):
 # shared by its bf16 and f32 kernels).
 DECODE_KERNEL = "decode_attention_kernel"
 FLASH_KERNEL = "flash_fwd"
+# Sent alone through phase 7's in-process router and phase 9's actor route.
+SOLO_PROMPT = make_prompts(1, 100, 1500, SEED + 40)[0]
 
 
 def graph_launches(programs: dict) -> int:
@@ -988,6 +1012,38 @@ def program_deltas(before: dict, after: dict) -> dict:
                   "mean_step_ms": ((p["decode_s"] - q["decode_s"]) / steps
                                    * 1e3 if steps else None)}
     return out
+
+
+def _percentiles(xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "max": float(np.max(xs))}
+
+
+def _burst(send, items, stagger_s: float):
+    """``send(item)`` from one client thread each, started ``stagger_s``
+    apart; returns (results, per-request seconds, wall seconds)."""
+    outs, lat, errors = [None] * len(items), [None] * len(items), []
+
+    def client(i):
+        t = time.perf_counter()
+        try:
+            outs[i] = send(items[i])
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(repr(e))
+        lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(items))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+        time.sleep(stagger_s)
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if errors or any(o is None for o in outs):
+        raise AssertionError(f"burst failed: {errors}")
+    return outs, lat, wall
 
 
 def submit_local(engine, pre, prompt: str, sp) -> int:
@@ -1103,6 +1159,9 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
     print(f"cb capture seconds by bucket {captured}", flush=True)
     sp = SamplingParams(max_tokens=max_tokens, temperature=0.0, stop_token=-1)
     router.generate("warm up", SamplingParams(max_tokens=2))
+    # One request alone at bucket 1: phase 9 sends it alone through the
+    # actor route and must get these tokens.
+    solo = router.generate(SOLO_PROMPT, sp, timeout_s=600)
     torch.cuda.synchronize()
     # Each prefill's host time, as the client threads see it.
     prefill_ms = []
@@ -1117,37 +1176,18 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
     pre.engine.prefill = timed_prefill
     before = engine.stats()
     trace_from = len(engine.bucket_trace)
-    outs, lat = [None] * len(prompts), [None] * len(prompts)
-    errors = []
-
-    def client(i):
-        t = time.perf_counter()
-        try:
-            outs[i] = router.generate(prompts[i], sp, timeout_s=600)
-        except Exception as e:  # noqa: BLE001 — reported below
-            errors.append(repr(e))
-        lat[i] = time.perf_counter() - t
-
     reset_counters()
-    threads = [threading.Thread(target=client, args=(i,), daemon=True)
-               for i in range(len(prompts))]
     # The burst runs under the profiler's kernel trace (CUDA activity only,
     # no host-op recording), so its kernels, graph replays' included, are
     # counted on the card by name.
     with kernel_trace() as prof:
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-            time.sleep(stagger_s)
-        for t in threads:
-            t.join(timeout=600)
+        outs, lat, wall = _burst(
+            lambda p: router.generate(p, sp, timeout_s=600), prompts,
+            stagger_s)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     pre.engine.prefill = prefill
     flash_run = flash_attention.launches
     eager_decode = decode_attention.launches
-    if errors or any(o is None for o in outs):
-        raise AssertionError(f"cb serve failed: {errors}")
     mid = engine.stats()
     traced = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1158,17 +1198,35 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
     again = [router.generate(p, sp, timeout_s=600)
              for p in prompts[:repeats]]
     end = engine.stats()
+    flash_repeats = flash_attention.launches - flash_run
     # Grown under the burst, shrunk after it (the repeats run one at a time).
     trace = list(engine.bucket_trace)[trace_from - 1:]
+    # The burst again with no trace, on an empty prefix cache so every
+    # request prefills as before: the reading phase 9's untraced one is
+    # set beside.
+    engine.prefix_cache = PrefixKVCache(engine.cb.prefix_cache_tokens,
+                                        engine.cb.prefix_block_tokens)
+    traced_prefill_ms = list(prefill_ms)
+    prefill_ms.clear()
+    pre.engine.prefill = timed_prefill
+    outs_u, lat_u, wall_u = _burst(
+        lambda p: router.generate(p, sp, timeout_s=600), prompts, stagger_s)
+    pre.engine.prefill = prefill
+    tokens_u = sum(o["num_generated"] for o in outs_u)
     hits = end["prefix_cache"]["hits"] - mid["prefix_cache"]["hits"]
     run_programs = program_deltas(before["programs"], mid["programs"])
     tokens = sum(o["num_generated"] for o in outs)
     rep = {
         "requests": len(outs), "tokens": tokens, "wall_s": wall,
+        "solo_tokens": solo["token_ids"],
         "tokens_per_s": tokens / wall, "kernel_trace_on": True,
         "mean_request_s": float(np.mean(lat)),
         "max_request_s": float(np.max(lat)),
-        "prefill_ms": prefill_ms,
+        "prefill_ms": traced_prefill_ms,
+        "untraced": {"tokens": tokens_u, "wall_s": wall_u,
+                     "tokens_per_s": tokens_u / wall_u,
+                     "request_s": _percentiles(lat_u),
+                     "prefill_ms": prefill_ms},
         "capture_s": captured,
         "decode_by_bucket": run_programs,
         "bucket_trace": trace,
@@ -1195,7 +1253,7 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
     # Checks that leave the later measurements meaningful are gathered and
     # raised at the end.
     problems = []
-    if any(o["num_generated"] != max_tokens for o in outs):
+    if any(o["num_generated"] != max_tokens for o in outs + outs_u):
         problems.append(f"a request did not generate exactly {max_tokens} "
                         "tokens")
     if any(not 0 <= t < cfg.vocab_size for o in outs for t in o["token_ids"]):
@@ -1205,9 +1263,9 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
                         f"{len(prompts)} prefills")
     if 8 not in trace or trace[-1] >= 8:
         problems.append(f"bucket trace {trace}: must reach 8 and shrink")
-    if hits != repeats or flash_attention.launches != flash_run:
-        problems.append(f"{hits} prefix hits for {repeats} repeats, flash "
-                        f"launches {flash_run} -> {flash_attention.launches}")
+    if hits != repeats or flash_repeats:
+        problems.append(f"{hits} prefix hits for {repeats} repeats, "
+                        f"{flash_repeats} flash launches in them")
     if rep["launches"]["decode_attention_graph"] <= 0:
         problems.append("the decode kernel ran in no graph replay")
     if traced_decode != eager_decode + rep["launches"]["decode_attention_graph"]:
@@ -1610,6 +1668,585 @@ def runtime_phase(device, model_cfg, prompts, max_tokens: int,
     return rep
 
 
+# ------------------------------------------------------------------ phase 9
+# The OpenAI apps are reached over HTTP through the serve proxy, which
+# needs aiohttp.
+SERVE_SEED = SEED + 8  # phase 7's weights: each engine makes them from this
+BURST_PROMPTS = (16, 100, 1500, SEED + 12)  # phase 7's traffic
+APP_TOKENS = 32  # 9a's greedy tokens a request
+APP_BODIES = 4  # 9a's completions, and as many chats, sent at once
+
+
+def _free_port() -> int:
+    """A port no process holds now: bound to port 0, then closed
+    (``start_http_proxy(port=0)`` would name port 0 in its URL)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _post(url: str, body: dict, timeout: float = 600.0):
+    """POST a JSON body; returns the urllib response (a context manager)."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def _post_unary(url: str, body: dict) -> dict:
+    with _post(url, body) as resp:
+        return json.loads(resp.read())["result"]
+
+
+def _post_sse(url: str, body: dict):
+    """The SSE chunks of a streamed request and its trace id; the frames
+    must end in ``[DONE]``."""
+    with _post(url, body) as resp:
+        trace_id = resp.headers["x-ray-tpu-trace-id"]
+        frames = [line[len("data: "):]
+                  for line in resp.read().decode().splitlines()
+                  if line.startswith("data: ")]
+    if not frames or frames[-1] != "[DONE]":
+        raise AssertionError(f"SSE frames end in {frames[-1:]}")
+    return [json.loads(f) for f in frames[:-1]], trace_id
+
+
+class _IdRecorder(ByteTokenizer):
+    """The byte tokenizer, keeping the ids of every decode: random weights
+    pick ids past the byte range, which decode to no text."""
+
+    def __init__(self):
+        self.decoded = []
+
+    def decode(self, ids):
+        self.decoded.append(list(ids))
+        return super().decode(ids)
+
+
+def _counted_llm_server():
+    """``build_openai_app``'s replica class with one phase-local method
+    that reads (and optionally zeroes) its kernel counters, its lease and
+    the ids its engine decoded."""
+
+    class _CountedLLMServer(serve_app.LLMServer.func_or_class):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.engine.tokenizer = _IdRecorder()
+
+        def probe(self, reset: bool = False):
+            out = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "launches": {"decode_attention": decode_attention.launches,
+                                "flash_fwd": flash_attention.launches},
+                   "decoded": self.engine.tokenizer.decoded}
+            if reset:
+                reset_counters()
+                self.engine.tokenizer.decoded = []
+            return out
+
+    return _CountedLLMServer
+
+
+def _completion_body(prompt: str, max_tokens: int, chat: bool = False,
+                     stream: bool = False) -> dict:
+    body = ({"messages": [{"role": "user", "content": prompt}]} if chat
+            else {"prompt": prompt})
+    body["max_tokens"] = max_tokens
+    if stream:
+        body["stream"] = True
+    return body
+
+
+def openai_app_phase(serve, ecfg) -> dict:
+    """9a: ``build_openai_app`` with one half-card replica behind the HTTP
+    proxy: a prompt alone against the same engine here, then 4 completions
+    and 4 chats at once and one streamed completion."""
+    from ray_tpu_torch.llm.serve_app import _prompt_from_body
+
+    app = build_openai_app(ecfg, num_gpus=0.5)
+    app = dataclasses.replace(app, deployment=dataclasses.replace(
+        app.deployment, func_or_class=_counted_llm_server()))
+    t0 = time.perf_counter()
+    handle = serve.run(app)
+    url = serve.start_http_proxy(port=_free_port())
+    rep = {"deploy_s": time.perf_counter() - t0}
+    try:
+        _post_unary(url + "/v1/completions", _completion_body("warm up", 2))
+        # A prompt alone, against the same engine here (the same weights,
+        # slots and width) given that prompt alone.
+        handle.probe.remote(reset=True).result(timeout=60)
+        solo = _post_unary(url + "/v1/completions",
+                           _completion_body(SOLO_PROMPT, APP_TOKENS))
+        decoded = handle.probe.remote(reset=True).result(timeout=60)
+        local = TorchLLMEngine(ecfg)
+        [want] = local.generate([SOLO_PROMPT], SamplingParams(
+            max_tokens=APP_TOKENS, temperature=0.0))
+        del local
+        torch.cuda.empty_cache()
+        rep["solo"] = {"tokens_equal": want["token_ids"] in decoded["decoded"],
+                       "text_equal":
+                           solo["choices"][0]["text"] == want["text"],
+                       "completion_tokens": solo["usage"]["completion_tokens"],
+                       "local_tokens": want["num_generated"]}
+        if not (rep["solo"]["tokens_equal"] and rep["solo"]["text_equal"]
+                and want["num_generated"]
+                == solo["usage"]["completion_tokens"]):
+            raise AssertionError(f"9a alone: {rep['solo']}, here {want}")
+
+        prompts = make_prompts(APP_BODIES, 100, 1500, SEED + 41)
+        bodies = [(path, _completion_body(p, APP_TOKENS, chat=chat))
+                  for chat, path in ((False, "/v1/completions"),
+                                     (True, "/v1/chat/completions"))
+                  for p in prompts]
+        outs, lat, wall = _burst(
+            lambda pb: _post_unary(url + pb[0], pb[1]), bodies, 0.0)
+        # prompts[0] alone, unary then streamed: the ids each decoded.
+        n0 = len(handle.probe.remote().result(timeout=60)["decoded"])
+        unary = _post_unary(url + "/v1/completions", _completion_body(
+            prompts[0], APP_TOKENS))
+        unary_ids = handle.probe.remote().result(timeout=60)["decoded"][n0:]
+        chunks, _ = _post_sse(url + "/v1/completions", _completion_body(
+            prompts[0], APP_TOKENS, stream=True))
+        after = handle.probe.remote().result(timeout=60)
+        stream_ids = after["decoded"][n0 + len(unary_ids):]
+    finally:
+        serve.stop_http_proxy()
+    serve.delete("LLMServer")
+    tok = ByteTokenizer()
+    problems = []
+    for (path, body), out in zip(bodies, outs):
+        chat = "messages" in body
+        n_prompt = len(tok.encode(_prompt_from_body(body)))
+        usage = out["usage"]
+        if out["object"] != ("chat.completion" if chat
+                             else "text_completion") or usage[
+                "prompt_tokens"] != n_prompt or not (
+                1 <= usage["completion_tokens"] <= APP_TOKENS) or usage[
+                "total_tokens"] != n_prompt + usage["completion_tokens"]:
+            problems.append(f"{path}: {out['object']} {usage}")
+    streamed = "".join(c["choices"][0]["text"] for c in chunks)
+    if chunks[-1]["choices"][0]["finish_reason"] != "stop" or any(
+            c["object"] != "text_completion" for c in chunks):
+        problems.append(f"SSE chunks {chunks[-1:]}")
+    if streamed != unary["choices"][0]["text"]:
+        problems.append(f"streamed {streamed!r} != unary "
+                        f"{unary['choices'][0]['text']!r}")
+    # The stream decodes each step's new ids, then at retirement the whole
+    # result and the tail not yet sent: the deltas and the tail must join
+    # to the result, and the result must be the unary request's ids.
+    sent = [t for ids in stream_ids[:-2] + stream_ids[-1:] for t in ids]
+    if len(unary_ids) != 1 or len(stream_ids) < 2 or \
+            stream_ids[-2] != unary_ids[0] or sent != unary_ids[0]:
+        problems.append(f"streamed ids {stream_ids} != unary {unary_ids}")
+    n_layer = ecfg.model.n_layer
+    launches = after["launches"]
+    # Every prefill (8 bodies, the unary and the stream) runs the flash
+    # forward once a layer; every eager decode step runs the decode kernel
+    # once a layer.
+    if launches["flash_fwd"] != n_layer * (len(bodies) + 2) or \
+            launches["decode_attention"] <= 0 or \
+            launches["decode_attention"] % n_layer:
+        problems.append(f"launches {launches}")
+    if after["visible"] != "0":
+        problems.append(f"replica saw CUDA_VISIBLE_DEVICES={after['visible']}")
+    rep.update({
+        "requests": len(bodies), "wall_s": wall,
+        "requests_per_s": len(bodies) / wall,
+        "latency_s": _percentiles(lat),
+        "completion_tokens": [o["usage"]["completion_tokens"] for o in outs],
+        "stream_chunks": len(chunks), "stream_deltas": len(stream_ids) - 2,
+        "stream_ids_equal": stream_ids[-2:-1] == unary_ids,
+        "launches": launches,
+        "visible": after["visible"]})
+    print("serve app " + json.dumps(rep), flush=True)
+    if problems:
+        raise AssertionError("9a: " + "; ".join(problems))
+    return rep
+
+
+@dataclasses.dataclass
+class _SentParams(SamplingParams):
+    """Sampling settings carrying the client's send time, on the host's
+    monotonic clock, which every process here shares."""
+
+    sent_t: float = 0.0
+
+
+class _TimedPrefill(PrefillReplica):
+    """The prefill role, timing each prefill and the wait before it, and
+    counting its launches in its own process.  The request's send time
+    becomes its enqueue time, from which the decode engine's own serving
+    telemetry counts its TTFT."""
+
+    def prefill(self, prompt, params=None):
+        t0 = time.monotonic()
+        meta = super().prefill(prompt, params)
+        meta.update(prefill_s=time.monotonic() - t0,
+                    prefill_wait_s=t0 - params.sent_t, enq_t=params.sent_t)
+        return meta
+
+    def launches(self, reset: bool = False):
+        out = {"flash_fwd": flash_attention.launches,
+               "decode_attention": decode_attention.launches}
+        if reset:
+            reset_counters()
+        return out
+
+
+class _TimedDecode(BatchedDecodeReplica):
+    """The batched decode role as shipped, with phase-local probes: the KV
+    handoff (the fetch of the prefill actor's pages onto this card), timed
+    from the call to the engine's ``submit_kv`` with the copy's stream
+    synchronized; each request's TTFT as the engine's serving telemetry
+    records it; and a kernel trace of this process between two calls."""
+
+    def __init__(self, *args, **kwargs):
+        from ray_tpu_torch.util import flight_recorder
+
+        super().__init__(*args, **kwargs)
+        self._call = threading.local()
+        self._ttft_s = []
+        self._opened, self._closed = threading.Event(), threading.Event()
+        submit = self.engine.submit_kv
+        record = flight_recorder.record_serve_stream
+
+        def timed_submit(meta, k, v):
+            torch.cuda.current_stream(k.device).synchronize()
+            self._call.fetch_s = time.perf_counter() - self._call.t0
+            self._call.kv_bytes = (k.numel() * k.element_size()
+                                   + v.numel() * v.element_size())
+            return submit(meta, k, v)
+
+        def kept(deployment, replica, queue_wait_s, ttft_s, gaps,
+                 outcome="ok"):
+            self._ttft_s.append(ttft_s)
+            record(deployment, replica, queue_wait_s, ttft_s, gaps,
+                   outcome=outcome)
+
+        self.engine.submit_kv = timed_submit
+        flight_recorder.record_serve_stream = kept
+
+    def run_from_kv(self, meta, timeout_s: float = 300.0):
+        fetch_from = time.monotonic() - meta["enq_t"]
+        self._call.t0 = time.perf_counter()
+        out = super().run_from_kv(meta, timeout_s)
+        out.update(fetch_s=self._call.fetch_s, kv_bytes=self._call.kv_bytes,
+                   fetch_from_s=fetch_from, prefill_s=meta["prefill_s"],
+                   prefill_wait_s=meta["prefill_wait_s"])
+        return out
+
+    def ttfts(self, n: int, reset: bool = False, timeout_s: float = 30.0):
+        """The TTFTs recorded since the last reset, once there are ``n``
+        (a request's telemetry is recorded just after its result)."""
+        deadline = time.monotonic() + timeout_s
+        while len(self._ttft_s) < n and time.monotonic() < deadline:
+            time.sleep(0.01)
+        out = list(self._ttft_s)
+        if reset:
+            self._ttft_s.clear()
+        return out
+
+    def trace_window(self):
+        """Trace this process's kernels on the card until ``close_window``;
+        returns the decode kernels traced by name, beside the eager launches
+        and the graph replays' launches (per capture times steps) made in
+        between."""
+        self._closed.clear()
+        with kernel_trace() as prof:
+            before = self.engine.stats()["programs"]
+            eager = decode_attention.launches
+            self._opened.set()
+            self._closed.wait(600)
+            eager = decode_attention.launches - eager
+            after = self.engine.stats()["programs"]
+        self._opened.clear()
+        traced = sum(e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and DECODE_KERNEL in e.key)
+        return {"traced": traced, "eager": eager,
+                "replayed": graph_launches(program_deltas(before, after))}
+
+    def window_opened(self) -> bool:
+        return self._opened.wait(600)
+
+    def close_window(self) -> None:
+        self._closed.set()
+
+
+def _probed_disagg_server():
+    """``build_disagg_openai_app``'s replica class with one phase-local
+    method that returns the token ids of its unary requests (random
+    weights pick ids past the byte range, which decode to no text)."""
+
+    class _ProbedDisaggServer(serve_app.LLMDisaggServer.func_or_class):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.generated = []
+            generate = self.router.generate
+
+            def kept(*a, **kw):
+                out = generate(*a, **kw)
+                self.generated.append(out["token_ids"])
+                return out
+
+            self.router.generate = kept
+
+        def probe(self):
+            return self.generated
+
+    return _ProbedDisaggServer
+
+
+def _graph_check(programs: dict, n_layer: int, what: str) -> None:
+    """Each bucket's program (``stats()["programs"]``) must be a CUDA graph
+    that replays ``n_layer`` decode kernels a step: the graph launches a
+    report gives are these per capture times the steps replayed."""
+    bad = {b: (p["graph"], p["launches_per_step"])
+           for b, p in programs.items()
+           if p["launches_per_step"].get("decode_attention") != n_layer
+           or not p["graph"]}
+    if bad:
+        raise AssertionError(f"{what}: graph, launches per step {bad}")
+
+
+def _wait_captured(stats, timeout_s: float = 600.0) -> dict:
+    """Poll ``stats()`` until buckets 1, 2, 4 and 8 are captured graphs.
+    A decode actor still starting answers no ``stats()`` call in time: that
+    is retried until the deadline."""
+    from ray_tpu_torch.core.exceptions import GetTimeoutError
+
+    deadline = time.monotonic() + timeout_s
+    programs = None
+    while time.monotonic() < deadline:
+        try:
+            programs = stats()["programs"]
+        except GetTimeoutError:
+            continue
+        if sorted(programs) == [1, 2, 4, 8] and all(
+                p["graph"] for p in programs.values()):
+            return {b: p["capture_s"] for b, p in programs.items()}
+        time.sleep(0.5)
+    raise AssertionError(f"buckets not captured: {programs}")
+
+
+def actor_route_phase(rt, ecfg, cb_cfg, prompts, max_tokens: int,
+                      want_solo) -> dict:
+    """9b, the actor route: ``DisaggRouter`` over a prefill and a batched
+    decode actor (half a card each) that time and count their work: a
+    request alone must give phase 7's in-process tokens; then phase 7's
+    burst, untraced, with each request's TTFT, prefill wait, prefill and
+    KV handoff; then a request alone under a kernel trace in the decode
+    actor."""
+    Pre = rt.remote(num_cpus=0, num_gpus=0.5)(_TimedPrefill)
+    Dec = rt.remote(num_cpus=0, num_gpus=0.5, max_concurrency=64)(
+        _TimedDecode)
+    pre, dec = Pre.remote(ecfg), Dec.remote(ecfg, cb_cfg)
+    try:
+        rt.get(dec.warm.remote(), timeout=600)
+        captured = _wait_captured(
+            lambda: rt.get(dec.stats.remote(), timeout=60))
+        router = DisaggRouter([pre], [dec])
+        sp = _SentParams(max_tokens=max_tokens, temperature=0.0,
+                         stop_token=-1)
+
+        def send(prompt):
+            return router.generate(
+                prompt, dataclasses.replace(sp, sent_t=time.monotonic()),
+                timeout_s=900)
+
+        router.generate("warm up", _SentParams(max_tokens=2,
+                                               sent_t=time.monotonic()))
+        solo = send(SOLO_PROMPT)
+        rep = {"capture_s": captured,
+               "solo_equal": solo["token_ids"] == want_solo,
+               "solo_kv_handoff": {"bytes": solo["kv_bytes"],
+                                   "ms": solo["fetch_s"] * 1e3}}
+        if not rep["solo_equal"]:
+            raise AssertionError(
+                f"actor route alone: {solo['token_ids']} != phase 7's "
+                f"{want_solo}")
+        rt.get(pre.launches.remote(reset=True), timeout=60)
+        rt.get(dec.ttfts.remote(2, reset=True), timeout=60)  # warm-up, solo
+        before = rt.get(dec.stats.remote(), timeout=60)
+        outs, lat, wall = _burst(send, prompts, 0.05)
+        after = rt.get(dec.stats.remote(), timeout=60)
+        pre_launches = rt.get(pre.launches.remote(), timeout=60)
+        ttft = rt.get(dec.ttfts.remote(len(prompts)), timeout=60)
+        # One more request alone under a kernel trace in the decode actor,
+        # after the timed burst, which thus ran in a process never traced.
+        window = dec.trace_window.remote()
+        rt.get(dec.window_opened.remote(), timeout=600)
+        send(make_prompts(1, 100, 1500, SEED + 42)[0])
+        rt.get(dec.close_window.remote(), timeout=60)
+        solo_trace = rt.get(window, timeout=120)
+    finally:
+        for actor in (pre, dec):
+            rt.kill(actor)
+    n_layer = ecfg.model.n_layer
+    _graph_check(after["programs"], n_layer, "actor route")
+    run_programs = program_deltas(before["programs"], after["programs"])
+    tokens = sum(o["num_generated"] for o in outs)
+    kv_bytes = [o["kv_bytes"] for o in outs]
+    fetch_s = [o["fetch_s"] for o in outs]
+    # Per request, in arrival order (the clients start 50 ms apart).
+    rep.update({
+        "solo_trace": solo_trace,
+        "requests": len(outs), "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "kernel_trace_on": False,
+        "request_s": _percentiles(lat),
+        "ttft_s": _percentiles(ttft) if len(ttft) == len(prompts) else None,
+        "prefill_wait_ms": [o["prefill_wait_s"] * 1e3 for o in outs],
+        "prefill_ms": [o["prefill_s"] * 1e3 for o in outs],
+        "kv_handoff": {
+            "bytes": kv_bytes, "ms": [f * 1e3 for f in fetch_s],
+            "from_send_ms": [o["fetch_from_s"] * 1e3 for o in outs],
+            "gb_per_s": [b / f / 1e9 for b, f in zip(kv_bytes, fetch_s)]},
+        "decode_by_bucket": run_programs,
+        "launches": {"flash_fwd_prefill_actor": pre_launches["flash_fwd"],
+                     "decode_attention_graph": graph_launches(run_programs),
+                     "decode_attention_traced_solo": solo_trace["traced"]}})
+    print("disagg actor route " + json.dumps(rep), flush=True)
+    problems = []
+    if any(o["num_generated"] != max_tokens for o in outs):
+        problems.append(f"a request did not generate {max_tokens} tokens")
+    if len(ttft) != len(prompts):
+        problems.append(f"{len(ttft)} TTFTs recorded for {len(prompts)} "
+                        "requests")
+    if pre_launches["flash_fwd"] != n_layer * len(prompts):
+        problems.append(f"prefill actor flash launches "
+                        f"{pre_launches['flash_fwd']} != {n_layer} x "
+                        f"{len(prompts)}")
+    if solo_trace["replayed"] <= 0 or solo_trace["traced"] != \
+            solo_trace["eager"] + solo_trace["replayed"]:
+        problems.append(f"{solo_trace['traced']} {DECODE_KERNEL} traced in "
+                        f"the decode actor for a request alone, want "
+                        f"{solo_trace['eager']} eager + "
+                        f"{solo_trace['replayed']} replayed")
+    if problems:
+        raise AssertionError("9b actor route: " + "; ".join(problems))
+    return rep
+
+
+def disagg_app_phase(rt, serve, ecfg, cb_cfg, prompts, max_tokens: int,
+                     repeats: int, want_solo) -> dict:
+    """9b, the app: ``build_disagg_openai_app`` behind the HTTP proxy,
+    every bucket captured first; a request alone must give phase 7's
+    tokens; then phase 7's burst, ``repeats`` of it again (router prefix
+    hits), and one streamed request whose trace must gather spans from 3
+    processes."""
+    from ray_tpu_torch.util import obs, tracing
+
+    app = build_disagg_openai_app(ecfg, cb_cfg=cb_cfg)
+    app = dataclasses.replace(app, deployment=dataclasses.replace(
+        app.deployment, func_or_class=_probed_disagg_server()))
+    t0 = time.perf_counter()
+    handle = serve.run(app)
+    url = serve.start_http_proxy(port=_free_port())
+    rep = {"deploy_s": time.perf_counter() - t0}
+    try:
+        stats = lambda: handle.stats.remote().result(timeout=60)  # noqa: E731
+        rep["capture_s"] = _wait_captured(lambda: stats()["decode"][0])
+        rep["ready_s"] = time.perf_counter() - t0
+        path = url + "/v1/completions"
+        _post_unary(path, _completion_body("warm up", 2))
+        n0 = len(handle.probe.remote().result(timeout=60))
+        _post_unary(path, _completion_body(SOLO_PROMPT, max_tokens))
+        solo_ids = handle.probe.remote().result(timeout=60)[n0:]
+        before = stats()
+
+        def send(prompt):
+            return _post_unary(path, _completion_body(prompt, max_tokens))
+
+        outs, lat, wall = _burst(send, prompts, 0.05)
+        mid = stats()
+        for p in prompts[:repeats]:
+            send(p)
+        end = stats()
+        chunks, trace_id = _post_sse(path, _completion_body(
+            prompts[0], max_tokens, stream=True))
+        deadline = time.monotonic() + 120
+        while True:
+            procs = obs.trace_processes(trace_id)
+            names = {sp["name"] for sp in tracing.get_trace(trace_id,
+                                                            timeout=30)}
+            if len(procs) >= 3 and {"serve.http.stream",
+                                    "serve.request.stream"} <= names:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"trace {trace_id}: {len(procs)} "
+                                     f"processes, spans {sorted(names)}")
+            time.sleep(0.5)
+    finally:
+        serve.stop_http_proxy()
+    serve.delete("LLMDisaggServer")
+    n_layer = ecfg.model.n_layer
+    _graph_check(mid["decode"][0]["programs"], n_layer, "disagg app")
+    run_programs = program_deltas(before["decode"][0]["programs"],
+                                  mid["decode"][0]["programs"])
+    tokens = sum(o["usage"]["completion_tokens"] for o in outs)
+    hits = end["router"]["hits"] - mid["router"]["hits"]
+    # The app samples to the byte tokenizer's EOS, which phase 7's
+    # reference (stop_token=-1) runs past.
+    eos = ByteTokenizer.EOS
+    want = want_solo[:want_solo.index(eos)] if eos in want_solo else want_solo
+    rep.update({
+        "solo_equal": solo_ids == [want],
+        "requests": len(outs), "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "request_s": _percentiles(lat),
+        "decode_by_bucket": run_programs, "router_repeat_hits": hits,
+        "engine_prefix_cache": end["decode"][0]["prefix_cache"],
+        "trace_processes": len(procs), "stream_chunks": len(chunks),
+        "launches": {"decode_attention_graph": graph_launches(run_programs)}})
+    print("disagg app " + json.dumps(rep), flush=True)
+    problems = []
+    if not rep["solo_equal"]:
+        problems.append(f"the prompt alone gave {solo_ids}, phase 7's "
+                        f"router {want}")
+    if hits != repeats:
+        problems.append(f"{hits} router prefix hits for {repeats} repeats")
+    if chunks[-1]["choices"][0]["finish_reason"] != "stop":
+        problems.append(f"SSE ends in {chunks[-1]}")
+    if any(not 1 <= o["usage"]["completion_tokens"] <= max_tokens
+           for o in outs):
+        problems.append("a completion's token count is out of range")
+    if problems:
+        raise AssertionError("9b app: " + "; ".join(problems))
+    return rep
+
+
+def serve_phase(cb_solo_tokens, max_tokens: int, repeats: int) -> dict:
+    """Phase 9: the Serve layer and both OpenAI apps at TinyLlama-1.1B's
+    width, bf16, under ``ray_tpu_torch.init(num_cpus=4)`` with the card
+    found by detection; each engine in its own GPU-leased process.  Every
+    process it starts is stopped before it returns."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    cfg = LlamaConfig.tinyllama_1b()
+    ecfg = EngineConfig(model=cfg, max_batch_size=8, max_seq_len=2048,
+                        seed=SERVE_SEED)
+    # The prefix cache holds the whole burst's prompts, as in phase 7.
+    cb_cfg = ContinuousBatchingConfig(prefix_cache_tokens=32768)
+    prompts = make_prompts(*BURST_PROMPTS)
+    rt.init(num_cpus=4)
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"detected {rt.cluster_resources()}")
+        rep = {"openai_app": openai_app_phase(serve, ecfg)}
+        rep["actor_route"] = actor_route_phase(
+            rt, ecfg, cb_cfg, prompts, 64, cb_solo_tokens)
+        rep["disagg_app"] = disagg_app_phase(
+            rt, serve, ecfg, cb_cfg, prompts, 64, repeats, cb_solo_tokens)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1798,6 +2435,31 @@ def main() -> int:
     print("runtime " + json.dumps(rt_rep), flush=True)
     actor_launches = rt_rep["actor_engine"]["launches"]
 
+    # Phase 9: the Serve layer and the OpenAI apps, each engine in its own
+    # GPU-leased process.
+    sv = serve_phase(cb["solo_tokens"], 64, 4)
+    oa, ar, da = sv["openai_app"], sv["actor_route"], sv["disagg_app"]
+    handoff, steps = ar["kv_handoff"], da["decode_by_bucket"]
+    print(f"serve on {card}: 9a openai app "
+          f"{oa['requests_per_s']:.2f} requests/s, latency p50 "
+          f"{oa['latency_s']['p50']:.3f} s, max {oa['latency_s']['max']:.3f}"
+          f" s; 9b actor route {ar['tokens_per_s']:.1f} tokens/s untraced "
+          f"(phase 7 in one process: {cb['untraced']['tokens_per_s']:.1f} "
+          f"untraced, {cb['tokens_per_s']:.1f} traced), "
+          f"TTFT p50 {ar['ttft_s']['p50']:.3f} s, p99 "
+          f"{ar['ttft_s']['p99']:.3f} s, prefill "
+          f"{np.median(ar['prefill_ms']):.1f} ms median (phase 7 untraced: "
+          f"{np.median(cb['untraced']['prefill_ms']):.1f}), KV handoff "
+          f"{np.median(handoff['ms']):.1f} ms median at "
+          f"{np.median(handoff['gb_per_s']):.2f} GB/s for "
+          f"{int(np.median(handoff['bytes']))} B median (alone: "
+          f"{ar['solo_kv_handoff']['ms']:.1f} ms for "
+          f"{ar['solo_kv_handoff']['bytes']} B); 9b app over HTTP "
+          f"{da['tokens_per_s']:.1f} tokens/s, request p50 "
+          f"{da['request_s']['p50']:.3f} s, decode step ms by bucket "
+          f"{ {b: p['mean_step_ms'] for b, p in steps.items()} }",
+          flush=True)
+
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
     # cores fed by TMA, or f32 FMAs (f32 runs FMAs everywhere).
@@ -1810,6 +2472,15 @@ def main() -> int:
          "launches_cb": cb["launches"]["decode_attention_traced"],
          # Phase 8: in the GPU-leased engine actor.
          "launches_runtime_actor": actor_launches["decode_attention"],
+         # Phase 9: eager steps in the OpenAI app's replica; graph replays
+         # in the decode actor of the actor route and of the disagg app
+         # (launches per capture times steps), and the actor route's
+         # request alone, counted by name in a trace of the decode actor.
+         "launches_serve_app": oa["launches"]["decode_attention"],
+         "launches_disagg_actor": ar["launches"]["decode_attention_graph"],
+         "launches_disagg_actor_traced_solo":
+             ar["launches"]["decode_attention_traced_solo"],
+         "launches_disagg_app": da["launches"]["decode_attention_graph"],
          "max_abs_err": dec["self"]["max_abs_err"],
          "ms": dec["self"]["ms"], "event_ms": dec["self"]["event_ms"],
          "plain_ms": dec["self"]["plain_ms"],
@@ -1825,6 +2496,9 @@ def main() -> int:
          "launches_train_gpt2_small": train_launches["flash_fwd"],
          "launches_cb": cb["launches"]["flash_fwd"],
          "launches_runtime_actor": actor_launches["flash_fwd"],
+         # Phase 9: the OpenAI app's replica, and the prefill actor.
+         "launches_serve_app": oa["launches"]["flash_fwd"],
+         "launches_disagg_actor": ar["launches"]["flash_fwd_prefill_actor"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],

@@ -1,9 +1,11 @@
 """``ray_tpu_torch.llm`` — LLM serving, port of ``ray_tpu.llm``.
 
 Ported: the slot engine, the tokenizer, the continuous-batching engine
-(resident decode loop, per-bucket CUDA graphs, prefix KV cache) and the
-in-process half of disaggregated serving.  The Serve app, batch inference
-and the load bench wait for the runtime's port (ROADMAP A3).
+(resident decode loop, per-bucket CUDA graphs, prefix KV cache),
+disaggregated prefill and decode over local replicas or GPU-leased actors
+(KV pages handed over through the device-object store), and the OpenAI
+Serve apps (``build_openai_app``, ``build_disagg_openai_app``).  Batch
+inference and the load bench wait for the data layer's port (ROADMAP A1c).
 """
 
 from .engine import (  # noqa: F401
@@ -13,6 +15,7 @@ from .engine import (  # noqa: F401
     TorchLLMEngine,
     encode_prompt,
 )
+from .serve_app import build_disagg_openai_app, build_openai_app  # noqa: F401
 from .tokenizer import ByteTokenizer  # noqa: F401
 from .disagg import (  # noqa: F401
     DecodeReplica,

@@ -37,9 +37,11 @@ Sampling: greedy is an argmax that consumes no random numbers, so batch
 composition cannot change a greedy output; stochastic sampling draws from
 the engine's ``torch.Generator``, on the stepping thread only.
 
-The JAX engine's flight-recorder and serving-telemetry hooks (and the
-per-request timestamps they read) wait for the metrics registry's port
-(ROADMAP A3).
+Telemetry is the JAX engine's, through ``util.flight_recorder``: each
+step's occupancy, bucket and queue depth and its admissions and
+retirements, prefix-cache lookups (``site="engine"``), preemptions, and
+each retired request's queue wait, TTFT and inter-token gaps under
+``ContinuousBatchingConfig.deployment``.
 
 Locking contract: ``_lock`` guards queue and slot metadata, subscriber
 queues and counters.  The caches and graphs are touched only by the
@@ -67,6 +69,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import model_family
 from ..models.gpt2_decode import sample_logits
 from ..ops.decode_attention import decode_attention, release_scratch
+from ..util import flight_recorder
 from .engine import EngineConfig, SamplingParams, encode_prompt
 from .tokenizer import ByteTokenizer
 
@@ -92,6 +95,8 @@ class ContinuousBatchingConfig:
     prefix_cache_tokens: int = 4096
     # Tokens per hash block in the prefix-cache chain.
     prefix_block_tokens: int = 16
+    # Serving-telemetry deployment tag for per-request histograms.
+    deployment: str = "llm_batched"
 
 
 def prefix_block_keys(token_ids: List[int], block_tokens: int) -> List[bytes]:
@@ -218,6 +223,11 @@ class _Seq:
     prompt_len: int
     generated: List[int]
     params: SamplingParams
+    enq_t: float
+    admit_t: float = 0.0
+    first_t: float = 0.0
+    last_t: float = 0.0
+    gaps: List[float] = dataclasses.field(default_factory=list)
     done: bool = False
     cancelled: bool = False
     preemptions: int = 0
@@ -490,6 +500,7 @@ class ContinuousBatchingEngine:
         )
         with self._lock:
             cached = self.prefix_cache.lookup(token_ids)
+        flight_recorder.record_llm_prefix_lookup("engine", cached is not None)
         if cached is None:
             return None
         # The first token is NOT sampled here: sampling may draw from the
@@ -508,6 +519,7 @@ class ContinuousBatchingEngine:
             return rid
 
     def _enqueue_locked(self, rid: int, meta: dict, k, v) -> None:
+        meta.setdefault("enq_t", time.monotonic())
         self._waiting.append((rid, meta, k, v))
         self._subs.setdefault(rid, _queue.SimpleQueue())
         self._events.setdefault(rid, threading.Event())
@@ -607,9 +619,11 @@ class ContinuousBatchingEngine:
     # ----------------------------------------------------------- stepping
     def step(self) -> None:
         """One token boundary + one decode step for the active set."""
-        self._token_boundary()
+        admitted, retired = self._token_boundary()
         active = self._decode_once()
         with self._lock:
+            occupancy = sum(1 for s in self.slots if s is not None)
+            queue_depth = len(self._waiting) + len(self._resume)
             self.counters["steps"] += 1
             self.counters["max_occupancy"] = max(
                 self.counters["max_occupancy"], active
@@ -618,6 +632,10 @@ class ContinuousBatchingEngine:
                 self._low_occupancy_steps += 1
             else:
                 self._low_occupancy_steps = 0
+        flight_recorder.record_llm_step(
+            occupancy=occupancy, queue_depth=queue_depth,
+            admitted=admitted, retired=retired, bucket=self.bucket,
+        )
         self._maybe_shrink()
 
     def _token_boundary(self) -> Tuple[int, int]:
@@ -640,7 +658,13 @@ class ContinuousBatchingEngine:
                     self.counters["retired"] += 1
                 else:
                     self._finish_rid_locked(s.rid, cancelled=True)
-        return sum(1 for _, s in done if not s.cancelled)
+        # Histograms outside the engine lock (the registry has its own).
+        retired = 0
+        for _, s in done:
+            if not s.cancelled:
+                retired += 1
+                self._record_request(s, outcome="ok")
+        return retired
 
     def _stop_token(self, s: _Seq) -> Optional[int]:
         return (s.params.stop_token if s.params.stop_token is not None
@@ -684,6 +708,22 @@ class ContinuousBatchingEngine:
         ev = self._events.get(rid)
         if ev is not None:
             ev.set()
+
+    def _record_request(self, s: _Seq, outcome: str) -> None:
+        """Per-request serving telemetry: queue wait = enqueue to
+        admission, TTFT = enqueue to first token, plus every inter-token
+        gap, recorded engine-side so queued clients need no consumer
+        thread each to be measured."""
+        try:
+            flight_recorder.record_serve_stream(
+                self.cb.deployment, "engine",
+                max(0.0, s.admit_t - s.enq_t),
+                max(0.0, (s.first_t or s.admit_t) - s.enq_t),
+                s.gaps, outcome=outcome,
+            )
+        except Exception:  # noqa: BLE001 — must not fail retirement
+            logging.getLogger(__name__).exception(
+                "serving telemetry of request %s failed", s.rid)
 
     def _starvation_guard(self) -> None:
         with self._lock:
@@ -731,6 +771,7 @@ class ContinuousBatchingEngine:
             self._resume.appendleft((victim.rid, meta, kh, vh))
             # The freed slot belongs to the starved head, not the victim.
             self._admit_waiting_first = True
+        flight_recorder.record_llm_preemption()
 
     def _admit(self) -> int:
         """Drain pending admissions into free slots, growing the bucket
@@ -770,6 +811,7 @@ class ContinuousBatchingEngine:
                 # last-position logits.
                 first = self._sample(meta["first_logits"][None],
                                      meta["sampling"])
+            now = time.monotonic()
             with self._lock:
                 if rid in self._finished or (
                     rid not in self._subs and rid not in self._events
@@ -785,6 +827,10 @@ class ContinuousBatchingEngine:
                         prompt_len=meta["prompt_len"],
                         generated=[first],
                         params=meta["sampling"],
+                        enq_t=meta.get("enq_t", now),
+                        admit_t=now,
+                        first_t=now,
+                        last_t=now,
                     )
                     self.counters["admitted"] += 1
                     self._push_delta_locked(seq, [first])
@@ -879,11 +925,14 @@ class ContinuousBatchingEngine:
             for i, s in active
         ]
         prog.decode_s += time.perf_counter() - t0
+        now = time.monotonic()
         with self._lock:
             for i, s, token in sampled:
                 if self.slots[i] is not s:  # retired/preempted mid-decode
                     continue
                 s.generated.append(token)
+                s.gaps.append(now - s.last_t)
+                s.last_t = now
                 self._push_delta_locked(s, [token])
                 self._check_done_locked(s)
         return len(active)

@@ -4,16 +4,21 @@ Prefill replicas compute a prompt's KV cache, decode replicas continue
 token generation, and the KV pages move from one to the other without
 re-running the prompt.  The pages ride the port's device-object store
 (``collective.device_objects``): the prefill engine keeps its
-``[L, 1, Hkv, n, D]`` pages resident on the card and returns ``DeviceRef``
-metadata, and the decode replica fetches them (a local hit: the tensors
-themselves, no copy) and splices them into its batch cache, one
-device-to-device copy.
+``[L, 1, Hkv, n, D]`` pages resident on its card and returns ``DeviceRef``
+metadata, and the decode replica fetches them and splices them into its
+batch cache.  In one process the fetch is a local hit (the tensors
+themselves, no copy); from another process it is the owner's
+``device_fetch`` RPC, one copy to the host there and one onto the decode
+replica's card here, the same bytes.
 
-This module ports the in-process half.  What waits for the runtime's port
-(ROADMAP A3): replicas as actors (``.remote()`` and ``ray_tpu.get`` in the
-router's actor branches, so ``DisaggRouter`` refuses actor handles), the
-remote fetch of pages another process owns, and the flight-recorder and
-tracing hooks.
+Replicas are local instances or actors (``ray_tpu_torch.remote`` over
+``PrefillReplica``, ``DecodeReplica`` or
+``continuous_batching.BatchedDecodeReplica``, each with its own GPU lease).
+``DisaggRouter`` takes either: over actors it fuses admission and
+completion into one round trip where the decode replica supports it, and
+``generate_many`` pipelines its prefills across the pool.  Each
+``generate`` is one ``llm.disagg.generate`` span whose actor calls inherit
+the trace, so router, prefill and decode export as one stitched trace.
 """
 
 from __future__ import annotations
@@ -25,12 +30,15 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+import ray_tpu_torch
+
 from ..collective.device_objects import device_object_store
 from ..device import DeviceLike, resolve_device
 from ..models import model_family
 from ..models.gpt2_decode import sample_logits
 from .continuous_batching import full_prompt_key, prefix_block_keys
 from .engine import EngineConfig, SamplingParams, TorchLLMEngine, encode_prompt
+from ..util import flight_recorder, tracing
 from .tokenizer import ByteTokenizer
 
 
@@ -100,6 +108,14 @@ class PrefillEngine:
         }
 
 
+def _missing_method(e: BaseException, name: str) -> bool:
+    """True iff a remote error is the executor's missing-method
+    AttributeError for ``name``, matched on its exact signature: a failure
+    raised inside the method also carries the method's name, and
+    swallowing it would demote a batched replica to the plain path."""
+    return f"has no attribute '{name}'" in str(e)
+
+
 def fetch_prefill_kv(meta: Dict[str, Any]):
     """Collect (and free) the KV pages a ``PrefillEngine`` published for one
     prompt: the consumer side of the handoff, shared by every decode role."""
@@ -144,8 +160,20 @@ class DecodeReplica:
                 raise TimeoutError(f"decode of request {request_id} timed out")
 
     def run_stream(self, request_id: int, timeout_s: float = 300.0):
-        """Stream an adopted request's text deltas as they decode."""
-        yield from self.engine.stream_request(request_id, timeout_s)
+        """Stream an adopted request's text deltas as they decode.  Each
+        stream records its TTFT and inter-token gaps
+        (``deployment="llm_decode"``)."""
+        tele = flight_recorder.StreamTelemetry("llm_decode", "decode")
+        outcome = "ok"
+        try:
+            for delta in self.engine.stream_request(request_id, timeout_s):
+                tele.tick()
+                yield delta
+        except BaseException:
+            outcome = "error"
+            raise
+        finally:
+            tele.done(outcome)
 
 
 class PrefillReplica:
@@ -162,23 +190,23 @@ class PrefillReplica:
         return self.engine.prefill(prompt, params)
 
 
-def _is_actor(h) -> bool:
-    return hasattr(getattr(h, "prefill", None), "remote") or hasattr(
-        getattr(h, "add_from_kv", None), "remote"
-    )
-
-
 class DisaggRouter:
     """Routes new requests to prefill replicas and continuations to decode
-    replicas, all plain local instances (actor handles wait for the
-    runtime's port, ROADMAP A3, and are refused).
+    replicas (the reference's prefill_decode serving-pattern router).
+
+    Works with actor handles (``.remote()``/``ray_tpu_torch.get``) or plain
+    local instances (ducks on the presence of ``.prefill.remote``).
 
     **Prefix-cache-aware decode routing** (on by default): the router
-    hashes the prompt into block-chain keys and routes a request sharing a
-    prefix with earlier traffic to the decode replica those requests landed
-    on.  On a full-coverage hit a batched decode replica admits straight
+    hashes the prompt into block-chain keys
+    (``llm.continuous_batching.prefix_block_keys``) and routes a request
+    sharing a prefix with earlier traffic to the decode replica those
+    requests landed on — the replica already holding the prefix KV
+    blocks.  On a full-coverage hit the decode replica admits straight
     from its prefix cache (``try_add_cached``) and the prefill hop is
-    skipped."""
+    skipped entirely; router affinity decisions and engine reuse are
+    accounted separately (``site="router"`` vs ``site="engine"`` on the
+    ``ray_tpu_llm_prefix_cache_*`` counters)."""
 
     def __init__(self, prefill_replicas: List[Any], decode_replicas: List[Any],
                  prefix_routing: bool = True,
@@ -187,43 +215,55 @@ class DisaggRouter:
                  imbalance_factor: float = 2.0):
         if not prefill_replicas or not decode_replicas:
             raise ValueError("need at least one prefill and one decode replica")
-        if any(_is_actor(r) for r in [*prefill_replicas, *decode_replicas]):
-            raise NotImplementedError(
-                "DisaggRouter over actor handles needs the runtime's port "
-                "(ROADMAP A3); pass local replica instances"
-            )
         self.prefill_replicas = list(prefill_replicas)
         self.decode_replicas = list(decode_replicas)
         self._p_rr = itertools.cycle(range(len(self.prefill_replicas)))
         self._d_rr = itertools.cycle(range(len(self.decode_replicas)))
         self.prefix_routing = prefix_routing
+        # replica id() -> supports try_add_cached (None = not yet probed).
+        # Actor handles synthesize any method name, so support is probed
+        # lazily per replica on first use (_try_cached); affinity routing
+        # itself is safe for plain DecodeReplicas.
+        self._cached_support: Dict[int, Optional[bool]] = {}
         self.prefix_block_tokens = prefix_block_tokens
         self.max_affinity_entries = max_affinity_entries
         self._tokenizer = ByteTokenizer()
-        # block-chain key -> decode replica index (insertion-ordered LRU),
-        # lock-guarded: client threads route at once.
+        # block-chain key -> decode replica index (insertion-ordered LRU).
+        # Routers live inside serve replicas where concurrent executor
+        # threads route at once: the map (and its eviction iterator) is
+        # lock-guarded — lookups/inserts only, never a blocking call.
         self._affinity: Dict[bytes, int] = {}
         self._affinity_lock = threading.Lock()
-        # Load guard: a warm replica whose queue is imbalance_factor deeper
-        # than the lightest replica's loses a block-level affinity request.
-        # Loads are TTL-cached.
+        # Load guard (same semantics as serve.PrefixAwareRouter): a warm
+        # replica whose queue is imbalance_factor deeper than the
+        # lightest replica's loses the request — a shared leading block
+        # must not collapse the whole pool onto one replica.  Queue
+        # loads are TTL-cached so the guard costs O(n) RPCs per interval,
+        # not per request.
         self.imbalance_factor = imbalance_factor
         self._loads_ttl_s = 0.1
         self._loads_cache: tuple = (0.0, None)  # (ts, loads | None)
         self.router_hits = 0
         self.router_misses = 0
 
+    @staticmethod
+    def _is_actor(h) -> bool:
+        return hasattr(getattr(h, "prefill", None), "remote") or hasattr(
+            getattr(h, "add_from_kv", None), "remote"
+        )
+
     # ------------------------------------------------- prefix-aware routing
     def _select_decode(self, prompt: str):
         """Pick the decode replica for ``prompt``: deepest block-chain
-        affinity match wins, round-robin otherwise.  Returns (replica,
-        affinity_hit) and re-homes the prompt's chain onto the choice."""
+        affinity match wins (the replica already holding those KV
+        blocks), round-robin otherwise.  Returns (replica, affinity_hit)
+        and re-homes the prompt's chain onto the choice."""
         if not self.prefix_routing:
             return self.decode_replicas[next(self._d_rr)], False
         token_ids = self._tokenizer.encode(prompt)
         # Block chain + the exact-prompt key: short prompts (< one block)
-        # produce no chain keys, and exact repeats are the most common
-        # serving pattern: the full key gives both affinity.
+        # produce no chain keys at all, and exact repeats are the single
+        # most common serving pattern — the full key gives both affinity.
         keys = prefix_block_keys(token_ids, self.prefix_block_tokens)
         keys.append(full_prompt_key(token_ids, self.prefix_block_tokens))
         with self._affinity_lock:
@@ -236,9 +276,13 @@ class DisaggRouter:
                     break
                 idx = None
         if idx is not None and not exact and len(self.decode_replicas) > 1:
-            # Imbalance guard (outside the affinity lock): a block-level
-            # match is locality advice; an exact-prompt match is exempt,
-            # since that replica holds this prompt's full KV.
+            # Imbalance guard (queue probes happen OUTSIDE the affinity
+            # lock): a block-level match is locality ADVICE — distinct
+            # prompts sharing one leading block must not collapse the
+            # pool onto one replica, so an overloaded advisory target
+            # loses the request.  An EXACT-prompt match is exempt: that
+            # replica holds this prompt's full KV, and re-homing it
+            # trades a cache hit for a prefill.
             loads = self._decode_loads()
             if loads is not None:
                 warm, lightest = loads[idx], min(loads)
@@ -256,41 +300,119 @@ class DisaggRouter:
                 self._affinity[key] = idx
             while len(self._affinity) > self.max_affinity_entries:
                 self._affinity.pop(next(iter(self._affinity)))
+        flight_recorder.record_llm_prefix_lookup("router", hit)
         return self.decode_replicas[idx], hit
 
     def _decode_loads(self) -> Optional[List[int]]:
         """Per-decode-replica load (queued + decoding sequences) from the
-        batched replicas' ``stats()``, TTL-cached; None when unavailable
-        (plain replicas have no stats): the guard then stands down."""
+        batched replicas' stats(), TTL-cached; None when unavailable
+        (plain replicas / probe failure) — the guard then stands down."""
         ts, loads = self._loads_cache
         now = time.monotonic()
         if ts > 0 and now - ts < self._loads_ttl_s:
-            return loads
+            return loads  # a cached None (plain pool) also holds for TTL
         try:
-            stats = [d.stats() for d in self.decode_replicas]
+            if self._is_actor(self.decode_replicas[0]):
+                stats = ray_tpu_torch.get(
+                    [d.stats.remote() for d in self.decode_replicas],
+                    timeout=5,
+                )
+            else:
+                stats = [d.stats() for d in self.decode_replicas]
             loads = [
                 int(s["occupancy"]) + int(s["queue_depth"]) for s in stats
             ]
-        except (AttributeError, KeyError, TypeError):
+        except Exception:  # noqa: BLE001 — guard degrades to affinity-only
             loads = None
         self._loads_cache = (now, loads)
         return loads
 
-    def _try_cached(self, d, prompt: str, params):
-        """Prefix-cache fast path where the replica has one."""
-        if not hasattr(d, "try_add_cached"):
+    def _try_cached(self, d, prompt: str, params, timeout_s: float):
+        """Prefix-cache fast path if the replica supports it.  Actor
+        handles synthesize any method name, so support is learned from
+        the first call: a missing-method error marks the replica plain
+        (DecodeReplica) and is never retried."""
+        key = id(d)
+        if self._cached_support.get(key) is False:
             return None
-        return d.try_add_cached(prompt, params)
+        if not self._is_actor(d):
+            if not hasattr(d, "try_add_cached"):
+                self._cached_support[key] = False
+                return None
+            self._cached_support[key] = True
+            return d.try_add_cached(prompt, params)
+        try:
+            rid = ray_tpu_torch.get(
+                d.try_add_cached.remote(prompt, params), timeout=timeout_s
+            )
+        except Exception as e:  # noqa: BLE001 — capability probe
+            # Concurrent first calls may all be probing: re-raise only
+            # when support was already CONFIRMED (a real failure on a
+            # batched replica), not when a sibling thread just marked
+            # the replica plain.
+            if self._cached_support.get(key) is not True and (
+                _missing_method(e, "try_add_cached")
+            ):
+                self._cached_support[key] = False
+                return None
+            raise
+        self._cached_support[key] = True
+        return rid
 
-    def _admit(self, prompt: str, params, d) -> int:
-        """Admit ``prompt`` on decode replica ``d``: prefix-cache fast path
-        first (no prefill hop), else prefill + KV handoff.  Returns the
-        replica-local request id."""
-        rid = self._try_cached(d, prompt, params)
+    def _admit(self, prompt: str, params, d, timeout_s: float):
+        """Admit ``prompt`` on decode replica ``d``: prefix-cache fast
+        path first (no prefill hop), else prefill + KV handoff.
+        Returns the replica-local request id."""
+        rid = self._try_cached(d, prompt, params, timeout_s)
         if rid is not None:
             return rid
         p = self.prefill_replicas[next(self._p_rr)]
+        if self._is_actor(d):
+            meta = ray_tpu_torch.get(
+                p.prefill.remote(prompt, params), timeout=timeout_s
+            )
+            return ray_tpu_torch.get(d.add_from_kv.remote(meta),
+                                     timeout=timeout_s)
         return d.add_from_kv(p.prefill(prompt, params))
+
+    def _generate_on(self, d, prompt: str, params, timeout_s: float) -> dict:
+        """Full generate on decode replica ``d``.  Batched actor replicas
+        take the FUSED round trips (generate_cached: cached admission +
+        completion in one call; run_from_kv: KV admission + completion in
+        one call) so the hot repeat-prompt path costs one RPC like a
+        monolithic engine call; plain replicas keep the two-phase path."""
+        if not self._is_actor(d):
+            rid = self._admit(prompt, params, d, timeout_s)
+            return d.run(rid, timeout_s=timeout_s)
+        key = id(d)
+        support = self._cached_support.get(key)
+        result = None
+        if support is not False:
+            try:
+                result = ray_tpu_torch.get(
+                    d.generate_cached.remote(prompt, params, timeout_s),
+                    timeout=timeout_s,
+                )
+                self._cached_support[key] = True
+            except Exception as e:  # noqa: BLE001 — capability probe
+                if support is not True and _missing_method(
+                    e, "generate_cached"
+                ):
+                    self._cached_support[key] = False
+                else:
+                    raise
+        if result is not None:
+            return result
+        p = self.prefill_replicas[next(self._p_rr)]
+        meta = ray_tpu_torch.get(p.prefill.remote(prompt, params),
+                                 timeout=timeout_s)
+        if self._cached_support.get(key):
+            return ray_tpu_torch.get(
+                d.run_from_kv.remote(meta, timeout_s), timeout=timeout_s
+            )
+        rid = ray_tpu_torch.get(d.add_from_kv.remote(meta),
+                                timeout=timeout_s)
+        return ray_tpu_torch.get(d.run.remote(rid), timeout=timeout_s)
 
     def generate(
         self,
@@ -299,17 +421,58 @@ class DisaggRouter:
         timeout_s: float = 300.0,
     ) -> dict:
         d, _ = self._select_decode(prompt)
-        rid = self._admit(prompt, params, d)
-        return d.run(rid, timeout_s=timeout_s)
+        # One request-scoped span per generate: the prefill and decode
+        # actor calls inside inherit the trace, so the router -> prefill
+        # -> decode path exports as a single stitched cluster trace.
+        # TTFT here is prompt-in to first-token-out (the admission hop —
+        # prefill, or the prefix-cache fast path), the disaggregation
+        # pattern's protected latency.
+        t0 = time.perf_counter()
+        ttft_s = None
+        outcome = "ok"
+        try:
+            with tracing.start_span(
+                "llm.disagg.generate", {"deployment": "llm_disagg"}
+            ) as span:
+                try:
+                    result = self._generate_on(d, prompt, params, timeout_s)
+                    # Fused round trips fold admission into completion,
+                    # so router-side TTFT is whole-request latency; the
+                    # decode engine records the true per-request TTFT
+                    # under its own deployment tag.
+                    ttft_s = time.perf_counter() - t0
+                    span.set_attribute("ttft_s", ttft_s)
+                except BaseException as e:
+                    span.set_attribute("error", str(e))
+                    raise
+            return result
+        except BaseException:
+            outcome = "error"
+            raise
+        finally:
+            flight_recorder.record_serve_request(
+                "llm_disagg", "router", 0.0,
+                ttft_s if ttft_s is not None
+                else time.perf_counter() - t0,
+                outcome=outcome,
+            )
 
     def stream(self, prompt: str,
                params: Optional[SamplingParams] = None,
                timeout_s: float = 300.0):
-        """Streaming generate: admit (prefix cache or prefill + KV handoff),
-        then yield the decode replica's text deltas."""
+        """Streaming generate through the disaggregated path: admit (prefix
+        cache or prefill+KV handoff), then yield the decode replica's text
+        deltas.  Inside a traced caller (e.g. the serve SSE path) the
+        admission and decode calls inherit the active span, so one
+        stitched trace covers router -> prefill -> decode."""
         d, _ = self._select_decode(prompt)
-        rid = self._admit(prompt, params, d)
-        yield from d.run_stream(rid, timeout_s=timeout_s)
+        rid = self._admit(prompt, params, d, timeout_s)
+        if self._is_actor(d):
+            gen = d.run_stream.options(num_returns="streaming").remote(rid)
+            for ref in gen:
+                yield ray_tpu_torch.get(ref, timeout=timeout_s)
+        else:
+            yield from d.run_stream(rid, timeout_s=timeout_s)
 
     def generate_many(
         self,
@@ -317,6 +480,75 @@ class DisaggRouter:
         params: Optional[SamplingParams] = None,
         timeout_s: float = 300.0,
     ) -> List[dict]:
-        """Every prompt through ``generate``, in order (the local branch of
-        the JAX router's pipelined fan-out)."""
-        return [self.generate(p, params, timeout_s) for p in prompts]
+        """Pipelined fan-out: all prefills dispatch first (spread over the
+        prefill pool), continuations spread over the decode pool."""
+        if not self._is_actor(self.prefill_replicas[0]):
+            return [self.generate(p, params, timeout_s) for p in prompts]
+        # Each prompt routes to its prefix-affine decode replica first; a
+        # prefix-cache hit admits immediately (no prefill dispatched).
+        # The misses' prefills all dispatch up-front (spread over the
+        # prefill pool); each prompt's continuation pipeline
+        # (add_from_kv -> run) starts the moment ITS prefill completes —
+        # no barrier, so one slow prefill never delays the other prompts'
+        # decode starts.
+        deadline = time.time() + timeout_s
+        run_refs: List[Any] = [None] * len(prompts)
+        meta_refs: Dict[Any, tuple] = {}
+        # Cached-admission probes dispatch as refs FIRST and resolve
+        # overlapped — a blocking probe per prompt would serialize N
+        # round trips ahead of the prefill fan-out and break its
+        # all-dispatch-immediately property.
+        probes: List[tuple] = []
+        for i, prompt in enumerate(prompts):
+            d, _ = self._select_decode(prompt)
+            key = id(d)
+            if self._cached_support.get(key) is False or not hasattr(
+                type(d) if not self._is_actor(d) else d, "try_add_cached"
+            ):
+                probes.append((i, prompt, d, None))
+            elif self._is_actor(d):
+                probes.append(
+                    (i, prompt, d, d.try_add_cached.remote(prompt, params))
+                )
+            else:
+                probes.append(
+                    (i, prompt, d, d.try_add_cached(prompt, params))
+                )
+        for i, prompt, d, probe in probes:
+            rid = None
+            if probe is not None:
+                if self._is_actor(d):
+                    try:
+                        rid = ray_tpu_torch.get(probe, timeout=timeout_s)
+                        self._cached_support[id(d)] = True
+                    except Exception as e:  # noqa: BLE001 — probe
+                        if self._cached_support.get(id(d)) is not True and (
+                            _missing_method(e, "try_add_cached")
+                        ):
+                            self._cached_support[id(d)] = False
+                        else:
+                            raise
+                else:
+                    rid = probe
+            if rid is not None:
+                run_refs[i] = d.run.remote(rid)
+            else:
+                ref = self.prefill_replicas[next(self._p_rr)].prefill.remote(
+                    prompt, params
+                )
+                meta_refs[ref] = (i, d)
+        pending = list(meta_refs)
+        while pending:
+            ready, pending = ray_tpu_torch.wait(
+                pending, num_returns=1,
+                timeout=max(0.0, deadline - time.time()),
+            )
+            if not ready:
+                raise TimeoutError("prefill fan-out timed out")
+            for ref in ready:
+                i, d = meta_refs[ref]
+                meta = ray_tpu_torch.get(ref, timeout=timeout_s)
+                rid = ray_tpu_torch.get(d.add_from_kv.remote(meta),
+                                        timeout=timeout_s)
+                run_refs[i] = d.run.remote(rid)
+        return ray_tpu_torch.get(run_refs, timeout=timeout_s)

@@ -192,9 +192,32 @@ def _resolve_actuator(kind: str, target: str) -> Optional[Callable]:
 def _builtin_serve_scale_up(target: str, violation, **_kw) -> str:
     """One-replica scale-up through the serve controller's autoscale
     path (drain bookkeeping, event recording, max_replicas clamp)."""
-    raise NotImplementedError(
-        "serve (ray_tpu_torch.serve) is not ported yet: ROADMAP A1b"
+    import ray_tpu_torch
+    from ..serve.controller import CONTROLLER_NAME
+
+    controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+    reply = ray_tpu_torch.get(
+        controller.remediation_scale_up.remote(target), timeout=30
     )
+    if not reply.get("scaled"):
+        # Fair-share fallback (multi-tenant arbitration): a deployment
+        # pinned at max_replicas under sustained queue pressure is a
+        # capacity fight, not a config ceiling — free the chips by
+        # checkpoint-then-evicting lower-priority training instead of
+        # declining outright.  The preemption spends the control plane's
+        # token-bucket budget, so a flapping finding cannot evict the
+        # world (see docs/scheduling.md).
+        resources = reply.get("replica_resources")
+        if resources:
+            detail = _builtin_preempt_low_priority(
+                target, violation, resources=resources,
+                cause=f"serve queue pressure on {target!r} "
+                      f"({reply.get('reason', 'declined')})",
+            )
+            if detail is not None:
+                return detail
+        raise RemediationSkipped(reply.get("reason", "declined"))
+    return f"deployment {target}: replicas -> {reply['replicas']}"
 
 
 def _builtin_preempt_low_priority(

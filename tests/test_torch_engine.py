@@ -153,8 +153,9 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 
 
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
-    """Every module of the port, and chip_smoke.py, import without JAX or
-    any module of the JAX package (checked in a fresh interpreter)."""
+    """Every module of the port (the Serve layer and the OpenAI apps
+    among them), and chip_smoke.py, import without JAX or any module of
+    the JAX package (checked in a fresh interpreter)."""
     code = """
 import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
@@ -163,6 +164,11 @@ names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
                                                "ray_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+serving = {{"ray_tpu_torch.serve", "ray_tpu_torch.serve.api",
+           "ray_tpu_torch.serve.controller", "ray_tpu_torch.serve.handle",
+           "ray_tpu_torch.serve.grpc_ingress", "ray_tpu_torch.llm.serve_app",
+           "ray_tpu_torch.llm.disagg"}}
+assert serving <= set(names), sorted(serving - set(names))
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -175,7 +181,7 @@ assert not bad, bad
                           text=True, timeout=120, env=env, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 14
+    assert n_modules >= 80
 
 
 def _forbidden_imports(path):

@@ -538,8 +538,6 @@ def test_unported_layers_say_which_roadmap_item(port):
         fn.bind("", 1)
     from ray_tpu_torch.util import remediation
 
-    with pytest.raises(NotImplementedError, match="A1b"):
-        remediation._builtin_serve_scale_up("d", None)
     with pytest.raises(NotImplementedError, match="A4"):
         remediation.apply_local_directive(
             {"kind": remediation.ACTION_COLLECTIVE_REPROBE})

@@ -10,7 +10,7 @@ edit to the port) changes the diff and fails until the new diff is
 reviewed and its digest, which the failure prints, is written down.  A
 listed file that no longer differs fails too, so the list stays exact; a
 module of
-``ray_tpu/{core,util}`` with no twin must be listed in ``WAITING`` with the
+``ray_tpu/{core,serve,util}`` with no twin must be listed in ``WAITING`` with the
 ROADMAP item it waits for, and a port module with no twin in
 ``PORT_ONLY``.
 """
@@ -27,7 +27,7 @@ JAX_PKG = os.path.join(REPO, "ray_tpu")
 PORT_PKG = os.path.join(REPO, "ray_tpu_torch")
 
 # The runtime's files, relative to each package root.
-RUNTIME_DIRS = ("core", "util", "util/state")
+RUNTIME_DIRS = ("core", "serve", "util", "util/state")
 RUNTIME_FILES = ("__init__.py", "_version.py", "api.py",
                  "collective/device_objects.py", "collective/p2p.py")
 
@@ -63,11 +63,11 @@ DIVERGES = {
                                 "jax.block_until_ready; the collective "
                                 "algorithms and tuner raise (A4)",
                                 "ac97eb8242831d71"),
-    "util/remediation.py": ("serve scale-up raises (A1b); collective "
-                            "re-probe raises (A4)", "3a09795e23f47853"),
+    "util/remediation.py": ("collective re-probe raises (A4)",
+                            "f323f8d9131a4c35"),
 }
 
-# Modules of ray_tpu/{core,util} that the port has not copied yet, by the
+# Modules of ray_tpu/{core,serve,util} that the port has not copied yet, by the
 # ROADMAP item they wait for.
 WAITING = {}
 

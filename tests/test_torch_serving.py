@@ -458,6 +458,9 @@ def test_local_router_matches_monolithic(families, decode):
 
 
 def test_router_refuses_actor_handles():
+    """Actor handles are taken and told from local instances by their
+    ``.remote`` methods (tests/test_torch_serve.py drives them); only an
+    empty pool is refused."""
     class Remote:
         def remote(self, *a):
             raise AssertionError("never called")
@@ -466,8 +469,9 @@ def test_router_refuses_actor_handles():
         prefill = Remote()
         add_from_kv = Remote()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        DisaggRouter([Actor()], [Actor()])
+    router = DisaggRouter([Actor()], [Actor()])
+    assert router._is_actor(router.prefill_replicas[0])
+    assert not router._is_actor(PrefillReplica.__new__(PrefillReplica))
     with pytest.raises(ValueError):
         DisaggRouter([], [object()])
 
@@ -534,13 +538,12 @@ def test_new_entry_points_need_a_gpu_unless_told_cpu(monkeypatch, entry):
 
 
 def test_config_mirrors_the_jax_scheduler_knobs():
-    """Every scheduling knob of the JAX config, with its default (the JAX
-    telemetry tag waits for the metrics registry's port)."""
+    """Every knob of the JAX config, with its default (the telemetry
+    deployment tag included)."""
     jfields = {f.name: f.default
                for f in dataclasses.fields(jcb.ContinuousBatchingConfig)}
     tfields = {f.name: f.default
                for f in dataclasses.fields(ContinuousBatchingConfig)}
-    jfields.pop("deployment")
     assert tfields == jfields
     assert tcb._buckets(8) == jcb._buckets(8) == [1, 2, 4, 8]
     assert tcb._buckets(6) == jcb._buckets(6)

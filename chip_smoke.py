@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive ray_tpu_torch's serving and training paths and its runtime on one
-NVIDIA GPU and check them.
+"""Drive ray_tpu_torch's serving and training paths, its runtime and its Data
+layer on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -83,7 +83,22 @@ Phases (none is caught: any failure exits non-zero):
      then ``build_disagg_openai_app`` over HTTP with every bucket captured
      first: the burst, 4 repeats that must be router prefix hits, and a
      streamed request whose trace gathers spans from 3 processes.
-     Tokens/s in phase 9 are read with no kernel trace.
+     Tokens/s in phase 9 are read with no kernel trace;
+ 10. the Data layer and batch inference at TinyLlama-1.1B's width (bf16,
+     phase 9's seeded weights, made by each engine; 64 greedy tokens),
+     under a fresh ``ray_tpu_torch.init(num_cpus=4)``: (a) 128 seeded
+     prompts written to parquet, read back and run through
+     ``build_llm_processor`` as shipped, two data actors leasing half the
+     card each: 128 rows, each with its own prompt and a ``str``, and
+     both actors under ``CUDA_VISIBLE_DEVICES="0"`` (wall time, rows/s,
+     the first block's time); (b) 64 of them through a counting subclass
+     of the stage in a pool of n=1, then n=2 actors leasing 1/n of the
+     card: in every actor, 22 flash launches a prefilled prompt and 22
+     decode launches an eager step; tokens/s, block latency, prefill and
+     decode-step ms by actor; at f32 and 2 layers every block's ids equal
+     a local engine's, and at bf16 the share that does is printed;
+     (c) ``bench_llm``'s quick stages on the card, their asserts active,
+     their rows printed as ``bench.py`` re-emits them.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -97,8 +112,10 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -122,10 +139,13 @@ from ray_tpu_torch.llm import (  # noqa: E402
     SamplingParams,
     TorchLLMEngine,
     build_disagg_openai_app,
+    build_llm_processor,
     build_openai_app,
     encode_prompt,
 )
-from ray_tpu_torch.llm import serve_app  # noqa: E402
+from ray_tpu_torch.device import resolve_device  # noqa: E402
+from ray_tpu_torch.llm import bench_llm, serve_app  # noqa: E402
+from ray_tpu_torch.llm.batch import _LLMStage  # noqa: E402
 from ray_tpu_torch.llm.continuous_batching import PrefixKVCache  # noqa: E402
 from ray_tpu_torch.models import (  # noqa: E402
     GPT2Config,
@@ -2247,6 +2267,322 @@ def serve_phase(cb_solo_tokens, max_tokens: int, repeats: int) -> dict:
     return rep
 
 
+# ----------------------------------------------------------------- phase 10
+# Phase 10's traffic: a file of seeded prompts, 8 a block (one engine's
+# slots); the counted runs take the first 64 of them.
+DATA_PROMPTS = (128, 100, 1500, SEED + 50)
+DATA_BLOCKS = 16
+DATA_COUNTED = 64
+DATA_TOKENS = 64
+
+
+def wait_card_free(rt, timeout_s: float = 120.0) -> float:
+    """Wait until no lease holds any share of the card: a pool is torn down
+    with ``kill``, which does not wait for the kill to land.  Returns the
+    wait in seconds."""
+    t0 = time.monotonic()
+    while rt.available_resources().get("GPU", 0.0) < 1.0:
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(
+                f"the card is still leased: {rt.available_resources()}")
+        time.sleep(0.1)
+    return time.monotonic() - t0
+
+
+def _prompt_rows(prompts):
+    return [{"id": i, "prompt": p} for i, p in enumerate(prompts)]
+
+
+class _SeededWeights:
+    """An engine's weights made as the engine makes them (seeded, on its
+    device), writing down first the lease of the process that makes them:
+    the shipped processor's actors run no code of this script but this."""
+
+    def __init__(self, cfg, seed: int, device, out_dir: str):
+        self.cfg, self.seed, self.device = cfg, seed, device
+        self.out_dir = out_dir
+
+    def __call__(self):
+        dev = resolve_device(self.device)
+        with open(os.path.join(self.out_dir, f"{os.getpid()}.json"), "w") as f:
+            json.dump({"pid": os.getpid(), "device": str(dev),
+                       "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}, f)
+        gen = torch.Generator(device=dev).manual_seed(self.seed)
+        return model_family(self.cfg).init(gen, self.cfg, dev)
+
+
+def shipped_processor(rd, ecfg, prompts, device, tmp: str) -> dict:
+    """10a: ``build_llm_processor`` as shipped over a parquet file of
+    prompts, two actors leasing half the card each."""
+    src = os.path.join(tmp, "prompts")
+    leases = os.path.join(tmp, "leases")
+    os.makedirs(leases)
+    rd.from_items(_prompt_rows(prompts), parallelism=DATA_BLOCKS
+                  ).write_parquet(src)
+    cfg = dataclasses.replace(ecfg, param_loader=_SeededWeights(
+        ecfg.model, ecfg.seed, device, leases))
+    process = build_llm_processor(
+        cfg, SamplingParams(max_tokens=DATA_TOKENS, temperature=0.0),
+        concurrency=2, num_gpus=0.5, device=device)
+    t0 = time.perf_counter()
+    rows_iter = process(rd.read_parquet(src)).iter_rows()
+    # take_all() is list(iter_rows()): the same, with the first row timed.
+    rows = [next(rows_iter)]
+    first_block_s = time.perf_counter() - t0
+    rows += list(rows_iter)
+    wall = time.perf_counter() - t0
+    seen = [json.load(open(os.path.join(leases, f)))
+            for f in sorted(os.listdir(leases))]
+    problems = []
+    if sorted(int(r["id"]) for r in rows) != list(range(len(prompts))):
+        problems.append(f"{len(rows)} rows, not one for each of "
+                        f"{len(prompts)} prompts")
+    wrong = [int(r["id"]) for r in rows
+             if r["prompt"] != prompts[int(r["id"])]
+             or not isinstance(r["generated"], str)]
+    if wrong:
+        problems.append(f"rows {wrong[:8]} lost their prompt or text")
+    if len(seen) != 2 or any(s["visible"] != "0" for s in seen):
+        problems.append(f"data actors' leases {seen}")
+    if problems:
+        raise AssertionError("10a: " + "; ".join(problems))
+    return {"rows": len(rows), "wall_s": wall,
+            "rows_per_s": len(rows) / wall, "first_block_s": first_block_s,
+            "actors": seen}
+
+
+class _CountedStage(_LLMStage):
+    """The shipped stage, which also writes into each of a block's rows the
+    block's token ids, this actor's pid and lease, the engine's
+    ``EngineStats`` over the block, and the block's launches of the flash
+    forward and decode kernels (counters zeroed when the actor starts)."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        reset_counters()
+        self.blocks = 0
+
+    def __call__(self, block):
+        outs = []
+        generate = self.engine.generate
+
+        def keep(prompts, params):  # the shipped call's outputs, kept
+            outs.extend(generate(prompts, params))
+            return outs
+
+        t0 = time.monotonic()
+        f0, d0 = flash_attention.launches, decode_attention.launches
+        s0 = dataclasses.replace(self.engine.stats)
+        self.engine.generate = keep
+        try:
+            rows = super().__call__(block)
+        finally:
+            del self.engine.generate
+        s1 = self.engine.stats
+        meta = {"pid": os.getpid(), "block": self.blocks, "t0": t0,
+                "t1": time.monotonic(),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "flash": flash_attention.launches - f0,
+                "decode": decode_attention.launches - d0,
+                **{k: getattr(s1, k) - getattr(s0, k) for k in (
+                    "prefills", "prefill_s", "decode_steps", "decode_s",
+                    "tokens")}}
+        self.blocks += 1
+        return [{**row, **meta, "token_ids": out["token_ids"]}
+                for row, out in zip(rows, outs)]
+
+
+def counted_run(rt, rd, ecfg, prompts, n: int, device) -> dict:
+    """10b: the counted stage under ``ActorPoolStrategy(size=n,
+    num_gpus=1/n)``; gates every actor's launch counts on its engine's
+    prefills and eager steps.  Returns the blocks in the order they came
+    out, with the run's readings."""
+    waited = wait_card_free(rt)
+    sp = SamplingParams(max_tokens=DATA_TOKENS, temperature=0.0)
+    ds = rd.from_items(_prompt_rows(prompts), parallelism=len(prompts) // 8)
+    t0 = time.perf_counter()
+    rows = ds.map_batches(
+        _CountedStage, fn_constructor_args=(ecfg, sp, "prompt", "generated",
+                                            device),
+        compute=rd.ActorPoolStrategy(size=n, num_gpus=1 / n, num_cpus=0),
+    ).take_all()
+    wall = time.perf_counter() - t0
+    blocks = {}
+    for r in rows:
+        b = blocks.setdefault((r["pid"], r["block"]), {
+            k: r[k] for k in ("pid", "block", "t0", "t1", "visible", "flash",
+                              "decode", "prefills", "prefill_s",
+                              "decode_steps", "decode_s", "tokens")}
+            | {"ids": [], "rows": [], "prompts": []})
+        b["ids"].append(r["token_ids"])
+        b["rows"].append(r["id"])
+        b["prompts"].append(r["prompt"])
+    blocks = list(blocks.values())
+    n_layer = ecfg.model.n_layer
+    actors = {}
+    for b in blocks:
+        a = actors.setdefault(b["pid"], {
+            "visible": b["visible"], "blocks": 0, "rows": 0, "flash": 0,
+            "decode": 0, "prefills": 0, "prefill_s": 0.0, "decode_steps": 0,
+            "decode_s": 0.0})
+        a["blocks"] += 1
+        a["rows"] += len(b["rows"])
+        for k in ("flash", "decode", "prefills", "prefill_s", "decode_steps",
+                  "decode_s"):
+            a[k] += b[k]
+    problems = []
+    if sorted(r["id"] for r in rows) != list(range(len(prompts))):
+        problems.append(f"{len(rows)} rows for {len(prompts)} prompts")
+    if len(actors) != n:
+        problems.append(f"{len(actors)} actors took blocks, not {n}")
+    for pid, a in actors.items():
+        if a["visible"] != "0":
+            problems.append(f"actor {pid} sees CUDA_VISIBLE_DEVICES="
+                            f"{a['visible']!r}")
+        if a["prefills"] != a["rows"] or a["flash"] != n_layer * a["prefills"]:
+            problems.append(f"actor {pid}: {a['flash']} flash launches for "
+                            f"{a['prefills']} prefills of {a['rows']} rows")
+        if a["decode"] != n_layer * a["decode_steps"] or not a["decode"]:
+            problems.append(f"actor {pid}: {a['decode']} decode launches for "
+                            f"{a['decode_steps']} eager steps")
+        a["prefill_ms"] = 1e3 * a["prefill_s"] / max(a["prefills"], 1)
+        a["decode_step_ms"] = 1e3 * a["decode_s"] / max(a["decode_steps"], 1)
+    if problems:
+        raise AssertionError(f"10b n={n}: " + "; ".join(problems))
+    tokens = sum(len(ids) for b in blocks for ids in b["ids"])
+    span = max(b["t1"] for b in blocks) - min(b["t0"] for b in blocks)
+    block_s = sorted(b["t1"] - b["t0"] for b in blocks)
+    return {"n": n, "blocks": blocks, "actors": actors, "wall_s": wall,
+            "lease_wait_s": waited, "tokens": tokens,
+            "tokens_per_s": tokens / wall,
+            # From the first block's start in an actor to the last's end:
+            # the pool's start and the engines' weights left out.
+            "tokens_per_s_blocks": tokens / span,
+            "block_s": {"p50": float(np.median(block_s)),
+                        "max": block_s[-1]},
+            "launches": {"flash_fwd": sum(a["flash"] for a in actors.values()),
+                         "decode_attention": sum(
+                             a["decode"] for a in actors.values())}}
+
+
+def local_block_ids(ecfg, blocks, device):
+    """Each block's ids from a local ``TorchLLMEngine`` given the same rows
+    in the same order."""
+    engine = TorchLLMEngine(ecfg, device=device)
+    sp = SamplingParams(max_tokens=DATA_TOKENS, temperature=0.0)
+    out = {tuple(b["rows"]): [o["token_ids"] for o in engine.generate(
+        b["prompts"], sp)] for b in blocks}
+    del engine
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bench_record(row: dict) -> dict:
+    """A ``bench_llm`` row as ``bench.py``'s ``run_llm_suite`` re-emits it
+    (its metric, value and unit first)."""
+    row = dict(row)
+    metric, value = row.pop("metric"), row.pop("value")
+    unit = ("x" if metric.endswith("_speedup")
+            else "req/s" if metric.endswith("_per_s")
+            else "s" if metric.endswith("_s") else "count")
+    return {"metric": metric, "value": round(float(value), 4), "unit": unit,
+            **row}
+
+
+def data_phase(device="cuda", cfg=None, parity_cfg=None,
+               init_kwargs=None) -> dict:
+    """Phase 10: the Data layer and batch inference at TinyLlama-1.1B's
+    width (bf16, phase 9's seeded weights made by each engine) under a
+    fresh ``ray_tpu_torch.init(num_cpus=4)``: (a) the shipped processor
+    over a parquet file; (b) the counted stage at n=1 and n=2 actors, and
+    its f32 token parity at 2 layers; (c) ``bench_llm``'s quick stages.
+    Every process it starts is stopped before it returns."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    cfg = cfg or LlamaConfig.tinyllama_1b()
+    parity_cfg = parity_cfg or LlamaConfig.tinyllama_1b(n_layer=2,
+                                                        dtype="float32")
+    ecfg = EngineConfig(model=cfg, max_batch_size=8, max_seq_len=2048,
+                        seed=SERVE_SEED)
+    prompts = make_prompts(*DATA_PROMPTS)
+    counted = prompts[:DATA_COUNTED]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    rt.init(num_cpus=4, **(init_kwargs or {}))
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"detected {rt.cluster_resources()}")
+        rep = {"shipped": shipped_processor(rd, ecfg, prompts, device, tmp)}
+        runs = {n: counted_run(rt, rd, ecfg, counted, n, device)
+                for n in (1, 2)}
+        # f32 at 2 layers: every block's ids equal a local engine's.
+        ecfg32 = dataclasses.replace(ecfg, model=parity_cfg)
+        run32 = counted_run(rt, rd, ecfg32, counted, 2, device)
+        want32 = local_block_ids(ecfg32, run32["blocks"], device)
+        bad = [b["rows"] for b in run32["blocks"]
+               if b["ids"] != want32[tuple(b["rows"])]]
+        if bad:
+            raise AssertionError(f"10b f32 parity: blocks {bad} differ from "
+                                 f"a local engine's ids")
+        # bf16 at full width: the share of blocks that agree, no gate
+        # (bf16 is held launch by launch, tokens in f32).
+        want = local_block_ids(ecfg, runs[1]["blocks"], device)
+        agree = {n: sum(b["ids"] == want[tuple(b["rows"])]
+                        for b in r["blocks"]) / len(r["blocks"])
+                 for n, r in runs.items()}
+        rep["counted"] = {f"n={n}": {k: v for k, v in r.items()
+                                     if k != "blocks"}
+                          | {"bf16_blocks_agree": agree[n]}
+                          for n, r in runs.items()}
+        rep["f32_parity"] = {"blocks": len(run32["blocks"]),
+                             "tokens": run32["tokens"],
+                             "launches": run32["launches"]}
+        # (c) the load bench's quick stages, their in-bench asserts active.
+        wait_card_free(rt)
+        rows = bench_llm.bench_load(quick=True, device=device)
+        rows += bench_llm.bench_disagg_ab(quick=True, device=device)
+        wait_card_free(rt)
+        rows += bench_llm.bench_interference(quick=True, device=device)
+        rep["bench"] = [_bench_record(r) for r in rows]
+    finally:
+        rt.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rep
+
+
+def report_data_phase(card: str, dp: dict) -> None:
+    """Phase 10's readings: one line of numbers, the bench rows, then the
+    whole report as JSON."""
+    sh, c1, c2 = dp["shipped"], dp["counted"]["n=1"], dp["counted"]["n=2"]
+
+    def by_actor(run, key):
+        return [round(a[key], 3) for a in run["actors"].values()]
+
+    print(f"data on {card}: 10a shipped processor {sh['rows']} rows in "
+          f"{sh['wall_s']:.2f} s ({sh['rows_per_s']:.2f} rows/s), first "
+          f"block after {sh['first_block_s']:.2f} s (actors' start and "
+          f"weights included); 10b output tokens/s n=1 "
+          f"{c1['tokens_per_s']:.1f} ({c1['tokens_per_s_blocks']:.1f} over "
+          f"the blocks), n=2 {c2['tokens_per_s']:.1f} "
+          f"({c2['tokens_per_s_blocks']:.1f}); block s p50/max n=1 "
+          f"{c1['block_s']['p50']:.3f}/{c1['block_s']['max']:.3f}, n=2 "
+          f"{c2['block_s']['p50']:.3f}/{c2['block_s']['max']:.3f}; prefill "
+          f"ms by actor n=1 {by_actor(c1, 'prefill_ms')}, n=2 "
+          f"{by_actor(c2, 'prefill_ms')}; decode step ms n=1 "
+          f"{by_actor(c1, 'decode_step_ms')}, n=2 "
+          f"{by_actor(c2, 'decode_step_ms')}; bf16 blocks agreeing with a "
+          f"local engine n=1 {c1['bf16_blocks_agree']:.3f}, n=2 "
+          f"{c2['bf16_blocks_agree']:.3f}; f32 2-layer ids equal a local "
+          f"engine's in all {dp['f32_parity']['blocks']} blocks", flush=True)
+    for row in dp["bench"]:
+        print("bench " + json.dumps(row), flush=True)
+    print("data " + json.dumps({k: v for k, v in dp.items()
+                                if k != "bench"}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2460,6 +2796,12 @@ def main() -> int:
           f"{ {b: p['mean_step_ms'] for b, p in steps.items()} }",
           flush=True)
 
+    # Phase 10: the Data layer and batch inference, each engine in a
+    # GPU-leased data actor.
+    dp = data_phase()
+    report_data_phase(card, dp)
+    c1, c2 = dp["counted"]["n=1"], dp["counted"]["n=2"]
+
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
     # cores fed by TMA, or f32 FMAs (f32 runs FMAs everywhere).
@@ -2481,6 +2823,9 @@ def main() -> int:
          "launches_disagg_actor_traced_solo":
              ar["launches"]["decode_attention_traced_solo"],
          "launches_disagg_app": da["launches"]["decode_attention_graph"],
+         # Phase 10: eager steps in 10b's data actors, one and two.
+         "launches_data_n1": c1["launches"]["decode_attention"],
+         "launches_data_n2": c2["launches"]["decode_attention"],
          "max_abs_err": dec["self"]["max_abs_err"],
          "ms": dec["self"]["ms"], "event_ms": dec["self"]["event_ms"],
          "plain_ms": dec["self"]["plain_ms"],
@@ -2499,6 +2844,9 @@ def main() -> int:
          # Phase 9: the OpenAI app's replica, and the prefill actor.
          "launches_serve_app": oa["launches"]["flash_fwd"],
          "launches_disagg_actor": ar["launches"]["flash_fwd_prefill_actor"],
+         # Phase 10: the prompts 10b's data actors prefilled.
+         "launches_data_n1": c1["launches"]["flash_fwd"],
+         "launches_data_n2": c2["launches"]["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],

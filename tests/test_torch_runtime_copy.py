@@ -9,10 +9,9 @@ change on either side (a fix made in the JAX twin and not carried over, an
 edit to the port) changes the diff and fails until the new diff is
 reviewed and its digest, which the failure prints, is written down.  A
 listed file that no longer differs fails too, so the list stays exact; a
-module of
-``ray_tpu/{core,serve,util}`` with no twin must be listed in ``WAITING`` with the
-ROADMAP item it waits for, and a port module with no twin in
-``PORT_ONLY``.
+module of ``ray_tpu/{core,data,serve,util}`` with no twin must be listed
+in ``WAITING`` with the ROADMAP item it waits for, and a port module with
+no twin in ``PORT_ONLY``.
 """
 
 import difflib
@@ -27,7 +26,7 @@ JAX_PKG = os.path.join(REPO, "ray_tpu")
 PORT_PKG = os.path.join(REPO, "ray_tpu_torch")
 
 # The runtime's files, relative to each package root.
-RUNTIME_DIRS = ("core", "serve", "util", "util/state")
+RUNTIME_DIRS = ("core", "data", "serve", "util", "util/state")
 RUNTIME_FILES = ("__init__.py", "_version.py", "api.py",
                  "collective/device_objects.py", "collective/p2p.py")
 
@@ -56,6 +55,10 @@ DIVERGES = {
                            "d1bc0a920219a264"),
     "core/runtime_env.py": ("default log dir and env cache under the temp "
                             "dir, not /tmp", "72776c185afcefc9"),
+    "data/execution.py": ("`num_gpus` lease in place of `num_tpus`",
+                          "2923c0f2ba820550"),
+    "data/streaming.py": ("`num_gpus` lease in place of `num_tpus`",
+                          "0ad19844827d703e"),
     "core/serialization.py": ("torch.Tensor carriers (raw bytes, dtype "
                               "name, shape) in place of jax.Array → numpy",
                               "f73e056089061164"),
@@ -67,7 +70,7 @@ DIVERGES = {
                             "f323f8d9131a4c35"),
 }
 
-# Modules of ray_tpu/{core,serve,util} that the port has not copied yet, by the
+# Modules of ray_tpu/{core,data,serve,util} that the port has not copied yet, by the
 # ROADMAP item they wait for.
 WAITING = {}
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive ray_tpu_torch's serving and training paths, its runtime and its Data
-layer on one NVIDIA GPU and check them.
+"""Drive ray_tpu_torch's serving and training paths, its runtime, its Data
+layer, its collective layer and Train on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -86,12 +86,12 @@ Phases (none is caught: any failure exits non-zero):
      Tokens/s in phase 9 are read with no kernel trace;
  10. the Data layer and batch inference at TinyLlama-1.1B's width (bf16,
      phase 9's seeded weights, made by each engine; 64 greedy tokens),
-     under a fresh ``ray_tpu_torch.init(num_cpus=4)``: (a) 128 seeded
+     under a fresh ``ray_tpu_torch.init(num_cpus=4)``: (a) 64 seeded
      prompts written to parquet, read back and run through
      ``build_llm_processor`` as shipped, two data actors leasing half the
-     card each: 128 rows, each with its own prompt and a ``str``, and
+     card each: 64 rows, each with its own prompt and a ``str``, and
      both actors under ``CUDA_VISIBLE_DEVICES="0"`` (wall time, rows/s,
-     the first block's time); (b) 64 of them through a counting subclass
+     the first block's time); (b) 32 of them through a counting subclass
      of the stage in a pool of n=1, then n=2 actors leasing 1/n of the
      card: in every actor, 22 flash launches a prefilled prompt and 22
      decode launches an eager step; tokens/s, block latency, prefill and
@@ -99,6 +99,35 @@ Phases (none is caught: any failure exits non-zero):
      a local engine's, and at bf16 the share that does is printed;
      (c) ``bench_llm``'s quick stages on the card, their asserts active,
      their rows printed as ``bench.py`` re-emits them.
+ 11. the collective layer and Train, under a fresh
+     ``ray_tpu_torch.init(num_cpus=4)``: (a) a 4-rank ``LocalGroup`` on the
+     card (two slices of 2): every op, every algorithm candidate pinned,
+     f32 and bf16 at 4 KiB, 1 MiB and 64 MiB a rank, held against plain
+     arithmetic on the card (integer-valued payloads exactly, floats at
+     1e-5 / 2e-2 relative, q8 within its bound), each op's GB/s at 64 MiB;
+     a ``DistGroup`` over NCCL at world 1 in a whole-card actor (every op
+     on 64 MiB returns what world 1 must), two NCCL ranks on one card
+     refused; a gloo ``DistGroup`` of two half-card actors: every op on
+     CUDA tensors of 1, 8 and 64 MiB against numpy here (results stay on
+     ``cuda:0``; GB/s printed), an integer-valued allreduce and a q8 one
+     through the tuner (a committed decision), a ``DeviceRef`` fetched
+     through the group, the flight recorder's records (algorithm, q8 wire
+     bytes) and the collective re-probe; (b) a ``TorchTrainer`` worker
+     leasing the card (NCCL, world 1) trains phase 5's GPT-2 small (bf16,
+     flash, remat, AdamW, B=32 x S=1024 from a dataset shard through
+     ``iter_batches``; 3 warm-up and 10 timed steps, reported each step, a
+     ``torch_ckpt`` checkpoint every 5): 24/12/12 flash launches every
+     step in the worker, ``CUDA_VISIBLE_DEVICES="0"``, falling loss, the
+     result's checkpoint restored bit for bit on the card; step ms and
+     tokens/s beside phase 5's and their ratio, save ms; (c) the same loop
+     at 2 layers and f32 hard-exits once at step 4, right after its
+     checkpoint at step 3, and resumes on the card: losses from step 4 on
+     equal an uninterrupted run's at 1e-5; (d) two workers leasing half
+     the card each (gloo over CUDA tensors), each on half of a seeded
+     batch, gradients MEAN-allreduced through a collective group of the
+     loop (2 layers, f32, SGD, 5 steps): both ranks' parameters equal,
+     and equal a one-worker run on the whole batch at 1e-4, every rank's
+     flash launches counted.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -2269,10 +2298,12 @@ def serve_phase(cb_solo_tokens, max_tokens: int, repeats: int) -> dict:
 
 # ----------------------------------------------------------------- phase 10
 # Phase 10's traffic: a file of seeded prompts, 8 a block (one engine's
-# slots); the counted runs take the first 64 of them.
-DATA_PROMPTS = (128, 100, 1500, SEED + 50)
-DATA_BLOCKS = 16
-DATA_COUNTED = 64
+# slots); the counted runs take the first 32 of them.  Half the depth
+# this phase first ran at (128 and 64), to keep the script, phase 11
+# included, near half its time limit.
+DATA_PROMPTS = (64, 100, 1500, SEED + 50)
+DATA_BLOCKS = 8
+DATA_COUNTED = 32
 DATA_TOKENS = 64
 
 
@@ -2583,6 +2614,848 @@ def report_data_phase(card: str, dp: dict) -> None:
                                 if k != "bench"}), flush=True)
 
 
+# ----------------------------------------------------------------- phase 11
+# 11a: payload bytes per rank of the LocalGroup sweep and of the gloo pair.
+LOCAL_SIZES = (4 << 10, 1 << 20, 64 << 20)
+GLOO_SIZES = (1 << 20, 8 << 20, 64 << 20)
+COLL_RANKS = 4
+COLL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+COLL_SEED = SEED + 60
+# 11b: phase 5's model, batch and steps; a checkpoint every 5 steps.
+TRAIN_CKPT_EVERY = 5
+# 11c: 8 steps at 2 layers, f32, a checkpoint every 4; the first attempt
+# hard-exits as step 4 starts, right after its checkpoint at step 3.
+RESUME_STEPS, RESUME_FAIL_AT, RESUME_BATCH = 8, 4, 8
+# 11d: 2 layers, f32, SGD, 5 steps on 8 sequences, halved between 2 ranks.
+DP_STEPS, DP_BATCH, DP_LR = 5, 8, 0.1
+
+
+@contextlib.contextmanager
+def _pinned(group, algo: str):
+    """``group``'s algorithm selection pinned to ``algo``."""
+    group._select = lambda op, nbytes, quantized: algo
+    try:
+        yield
+    finally:
+        del group._select
+
+
+def _q8_bound(stack, block: int, algo: str, ici: int):
+    """Per-element bound of a q8 allreduce of ``stack`` [n, elems] (f32)
+    against the exact sum: each rank's round-to-nearest error is at most
+    amax/254 of its block (``algorithms.quantized_allreduce``); two-level
+    quantizes each slice partial's reduce-scattered chunk instead."""
+    n, elems = stack.shape
+
+    def per_block(rows):
+        pad = (-rows.shape[1]) % block
+        blocks = F.pad(rows, (0, pad)).reshape(rows.shape[0], -1, block)
+        bound = blocks.abs().amax(dim=2).sum(dim=0) / 254.0
+        return bound.repeat_interleave(block)[:rows.shape[1]]
+
+    if algo != "two_level_q8":
+        return per_block(stack)
+    partials = stack.reshape(n // ici, ici, elems).sum(dim=1)
+    chunks = F.pad(partials, (0, (-elems) % ici)).reshape(n // ici, ici, -1)
+    return torch.cat([per_block(chunks[:, c]) for c in range(ici)])[:elems]
+
+
+def local_collectives(device, sizes=LOCAL_SIZES) -> dict:
+    """11a: every op of a 4-rank ``LocalGroup`` on ``device`` (two slices of
+    2), every algorithm candidate pinned, f32 and bf16, at each payload of
+    ``sizes`` per rank, held against plain arithmetic on the same device:
+    integer-valued payloads exactly, floats at 1e-5 (f32) and 2e-2 (bf16)
+    relative, q8 within its bound.  Then each op's bytes/s at the largest
+    f32 payload (``bench_collective.op_bandwidth``)."""
+    from ray_tpu_torch.collective import LocalGroup
+    from ray_tpu_torch.collective import algorithms as alg
+    from ray_tpu_torch.collective.bench_collective import op_bandwidth
+    from ray_tpu_torch.collective.types import ReduceOp
+
+    n = COLL_RANKS
+    g = LocalGroup("phase11-local", [device] * n, slice_size=2)
+    gen = torch.Generator(device).manual_seed(COLL_SEED)
+    problems, checks, worst = [], 0, {}
+
+    def want(ok, what):
+        nonlocal checks
+        checks += 1
+        if not ok:
+            problems.append(what)
+
+    def rel(outs, ref, what, tol):
+        ref = ref.float()
+        err = max(((o.float() - ref).abs() / ref.abs()).max().item()
+                  for o in outs)
+        worst[what] = max(worst.get(what, 0.0), err)
+        want(err <= tol, f"{what}: relative error {err} > {tol}")
+
+    def exact(outs, ref, what):
+        want(all(o.dtype == ref.dtype and torch.equal(o, ref) for o in outs),
+             what)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = COLL_TOL[dtype]
+        name = str(dtype)[6:]
+        for nbytes in sizes:
+            elems = nbytes // dtype.itemsize
+            at = f"{name} {nbytes} B"
+            ints = [torch.randint(-8, 8, (elems,), generator=gen,
+                                  device=device).to(dtype) for _ in range(n)]
+            ones_twos = [torch.randint(1, 3, (elems,), generator=gen,
+                                       device=device).to(dtype)
+                         for _ in range(n)]
+            floats = [(1 + torch.rand(elems, generator=gen, device=device)
+                       ).to(dtype) for _ in range(n)]
+            istack = torch.stack(ints).float()
+            fstack = torch.stack(floats).double()
+            isum = istack.sum(0).to(dtype)
+            for algo in alg.allreduce_candidates(n, g.topology):
+                with _pinned(g, algo):
+                    exact(g.allreduce(ints), isum, f"allreduce {algo} {at}")
+                    rel(g.allreduce(floats), fstack.sum(0),
+                        f"allreduce {algo} {name}", tol)
+            for algo in alg.allreduce_candidates(n, g.topology, True):
+                with _pinned(g, algo):
+                    outs = g.allreduce(floats, quantized=True)
+                f32 = fstack.float()
+                bound = _q8_bound(f32, g._quant_block(), algo, 2)
+                ref = f32.sum(0)
+                slack = ref.abs() * 2 ** -7 if dtype == torch.bfloat16 \
+                    else 1e-5
+                err = max(((o.float() - ref).abs() - bound - slack).max()
+                          .item() for o in outs)
+                want(err <= 0, f"allreduce {algo} {at}: past the q8 bound "
+                     f"by {err}")
+            for op, xs, ref in (
+                    (ReduceOp.MAX, ints, istack.amax(0)),
+                    (ReduceOp.MIN, ints, istack.amin(0)),
+                    (ReduceOp.MEAN, ints, istack.sum(0) / n),
+                    (ReduceOp.PRODUCT, ones_twos,
+                     torch.stack(ones_twos).float().prod(0))):
+                exact(g.allreduce(xs, op), ref.to(dtype),
+                      f"allreduce {op.value} {at}")
+                red = g.reducescatter(xs, op)
+                part = elems // n
+                want(all(torch.equal(o, ref.to(dtype)[r * part:(r + 1) * part])
+                         for r, o in enumerate(red)),
+                     f"reducescatter {op.value} {at}")
+            for algo in ("flat", "ring"):
+                with _pinned(g, algo):
+                    got = g.allgather(floats)
+                    red = g.reducescatter(ints)
+                want(all(torch.equal(a, b) for r in got
+                         for a, b in zip(r, floats)),
+                     f"allgather {algo} {at}")
+                part = elems // n
+                want(all(torch.equal(o, isum[r * part:(r + 1) * part])
+                         for r, o in enumerate(red)),
+                     f"reducescatter sum {algo} {at}")
+            want(all(torch.equal(o, floats[3]) for o in
+                     g.broadcast(floats, src_rank=3)), f"broadcast {at}")
+            chunks = [x.reshape(n, -1) for x in floats]
+            want(all(torch.equal(o, torch.stack([c[i] for c in chunks]))
+                     for i, o in enumerate(g.alltoall(chunks))),
+                 f"alltoall {at}")
+            want(all(torch.equal(o, floats[(i - 1) % n]) for i, o in
+                     enumerate(g.sendrecv_ring(floats, shift=1))),
+                 f"sendrecv_ring {at}")
+            del ints, ones_twos, floats, istack, fstack, chunks
+    g.barrier()
+    if problems:
+        raise AssertionError(f"11a LocalGroup: {problems}")
+    big = sizes[-1] // 4
+    xs = [torch.rand(big, generator=gen, device=device) for _ in range(n)]
+    bw = op_bandwidth(g, xs)
+    del xs
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {"ranks": n, "device": str(device), "checks": checks,
+            "largest_rel_err": worst,
+            "gb_per_s_at_largest_f32": {k: v / 1e9 for k, v in bw.items()}}
+
+
+def _int_payload(seed: int, rank: int, elems: int):
+    """Phase 11a's gloo payloads: integer-valued f32, from numpy (so the
+    script makes the same ones)."""
+    rng = np.random.default_rng(seed + rank)
+    return rng.integers(-8, 8, elems).astype(np.float32)
+
+
+def _gloo_expected(seed: int, elems: int) -> dict:
+    """sha256 of each op's result by rank, from numpy in this process."""
+    import hashlib
+
+    x = [_int_payload(seed, r, elems) for r in range(2)]
+    p = [np.abs(v) % 2 + 1 for v in x]
+    half = elems // 2
+    full = {"allreduce_sum": [x[0] + x[1]] * 2,
+            "allreduce_max": [np.maximum(x[0], x[1])] * 2,
+            "allreduce_min": [np.minimum(x[0], x[1])] * 2,
+            "allreduce_mean": [(x[0] + x[1]) / 2] * 2,
+            "allreduce_product": [p[0] * p[1]] * 2,
+            "allgather": [np.stack(x)] * 2,
+            "reducescatter": [(x[0] + x[1])[r * half:(r + 1) * half]
+                              for r in range(2)],
+            "broadcast": [x[1]] * 2,
+            "alltoall": [np.stack([x[j].reshape(2, -1)[r] for j in range(2)])
+                         for r in range(2)],
+            "ppermute": [x[1], x[0]]}
+    for algo in ("ring", "tree"):
+        full[f"allreduce_sum_{algo}"] = full["allreduce_sum"]
+    full["allgather_ring"] = full["allgather"]
+    full["reducescatter_ring"] = full["reducescatter"]
+    return {k: [hashlib.sha256(np.ascontiguousarray(v, np.float32).tobytes())
+                .hexdigest() for v in vs] for k, vs in full.items()}
+
+
+class _NcclMember:
+    """11a: a DistGroup over NCCL in a worker that leases the whole card."""
+
+    def world_one(self, nbytes: int) -> dict:
+        import os
+
+        import torch
+
+        from ray_tpu_torch import collective as col
+        from ray_tpu_torch.collective.types import ReduceOp
+
+        g = col.init_collective_group(1, 0, backend="nccl",
+                                      group_name="nccl-1")
+        x = torch.randint(-8, 8, (nbytes // 4,), device="cuda").float()
+        ok = {f"allreduce_{op.value}": torch.equal(g.allreduce(x, op), x)
+              for op in ReduceOp}
+        ok["allreduce_q8"] = torch.equal(g.allreduce(x, quantized=True), x)
+        got = g.allgather(x)
+        ok["allgather"] = len(got) == 1 and torch.equal(got[0], x)
+        ok["reducescatter"] = torch.equal(g.reducescatter(x), x)
+        ok["broadcast"] = torch.equal(g.broadcast(x, 0), x)
+        ok["alltoall"] = torch.equal(g.alltoall(x.reshape(1, -1)),
+                                     x.reshape(1, -1))
+        ok["ppermute"] = torch.equal(g.ppermute(x), x)
+        g.barrier()
+        col.destroy_collective_group("nccl-1")
+        return {"ok": ok, "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device": str(x.device)}
+
+    def refused(self, rank: int):
+        """Two NCCL ranks on one card: the group must refuse, by name."""
+        from ray_tpu_torch import collective as col
+
+        try:
+            col.init_collective_group(2, rank, backend="nccl",
+                                      group_name="nccl-2")
+        except ValueError as e:
+            return str(e)
+        return None
+
+
+class _GlooMember:
+    """11a: one of two gloo ranks, each leasing half the card."""
+
+    def join(self, rank: int) -> str:
+        import os
+
+        from ray_tpu_torch import collective as col
+
+        self.rank = rank
+        self.group = col.init_collective_group(2, rank, backend="gloo",
+                                               group_name="gloo-2")
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def ops(self, seed: int, sizes, device) -> dict:
+        """Every op at each payload on ``device``'s tensors: each result's
+        sha256, device and time (ms, the card synchronized)."""
+        import hashlib
+        import time
+
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch.collective.types import ReduceOp
+
+        g, out = self.group, {}
+
+        def sync():
+            if device != "cpu":
+                torch.cuda.synchronize()
+
+        def timed(fn):
+            sync()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            return res, (time.perf_counter() - t0) * 1e3
+
+        for nbytes in sizes:
+            elems = nbytes // 4
+            xn = _int_payload(seed, self.rank, elems)
+            x = torch.from_numpy(xn).to(device)
+            p = torch.from_numpy(np.abs(xn) % 2 + 1).to(device)
+            calls = {f"allreduce_{op.value}":
+                     (lambda op=op: g.allreduce(
+                         p if op == ReduceOp.PRODUCT else x, op), None)
+                     for op in ReduceOp}
+            calls.update({
+                "allreduce_sum_ring": (lambda: g.allreduce(x), "ring"),
+                "allreduce_sum_tree": (lambda: g.allreduce(x), "tree"),
+                "allgather": (lambda: torch.stack(g.allgather(x)), "flat"),
+                "allgather_ring": (lambda: torch.stack(g.allgather(x)),
+                                   "ring"),
+                "reducescatter": (lambda: g.reducescatter(x), "flat"),
+                "reducescatter_ring": (lambda: g.reducescatter(x), "ring"),
+                "broadcast": (lambda: g.broadcast(x, src_rank=1), None),
+                "alltoall": (lambda: g.alltoall(x.reshape(2, -1)), None),
+                "ppermute": (lambda: g.ppermute(x, shift=1), None),
+            })
+            calls["allreduce_sum"] = (lambda: g.allreduce(x), "flat")
+            for name, (fn, algo) in calls.items():
+                if algo:
+                    g._select = lambda o, nb, q, a=algo: a
+                fn()  # warm: the first call of a shape
+                res, ms = timed(fn)
+                if algo:
+                    del g._select
+                raw = res.contiguous().reshape(-1).view(torch.uint8)
+                out[f"{name} {nbytes}"] = {
+                    "sha256": hashlib.sha256(
+                        raw.cpu().numpy().tobytes()).hexdigest(),
+                    "device": str(res.device), "ms": ms}
+        return out
+
+    def tuned(self, nbytes: int, device) -> dict:
+        """An integer-valued ring allreduce through the tuner (every
+        candidate explored, then a synced commit) and a q8 allreduce."""
+        import torch
+
+        from ray_tpu_torch import collective as col
+
+        col.reset_tuner()
+        g = self.group
+        x = torch.from_numpy(_int_payload(SEED, self.rank, nbytes // 4)
+                             ).to(device)
+        want = torch.from_numpy(_int_payload(SEED, 0, nbytes // 4)
+                                + _int_payload(SEED, 1, nbytes // 4)
+                                ).to(device)
+        exact = [torch.equal(g.allreduce(x), want) for _ in range(10)]
+        # Each rank's |x| + 1 is 1..9: its q8 error is at most 9/254.
+        q = g.allreduce(x.abs() + 1, quantized=True)
+        ref = x.abs() + 1 + (want - x).abs() + 1
+        stats = col.collective_stats()
+        return {"exact": exact,
+                "q8_max_abs_err": (q - ref).abs().max().item(),
+                "tuner": stats["tuner"], "staged": stats["staged"]}
+
+    def recorder(self) -> dict:
+        """The flight recorder's collective series in this process: the
+        algorithms each op was recorded under, and the q8 bytes saved."""
+        from ray_tpu_torch.util import metric_registry as reg
+        from ray_tpu_torch.util import metrics
+
+        algos, saved = set(), 0.0
+        with metrics._lock:
+            for (name, tags), ent in metrics._local.items():
+                tags = dict(tags)
+                if name == reg.COLLECTIVE_DURATION_HIST and "algo" in tags:
+                    algos.add(f"{tags['op']}/{tags['algo']}")
+                if name == reg.COLLECTIVE_QUANTIZED_BYTES_SAVED_TOTAL:
+                    saved += ent["value"]
+        return {"algos": sorted(algos), "q8_bytes_saved": saved}
+
+    def put(self, seed: int, device):
+        import torch
+
+        from ray_tpu_torch.collective import device_object_store
+
+        gen = torch.Generator(device).manual_seed(seed)
+        t = torch.randn((1024, 1024), generator=gen, device=device)
+        return device_object_store().put(t, group_name="gloo-2", rank=0)
+
+    def serve(self, ref) -> str:
+        from ray_tpu_torch.collective import device_object_store
+
+        return _sha256(device_object_store().serve_fetch(ref))
+
+    def fetch(self, ref) -> dict:
+        from ray_tpu_torch.collective import device_object_store
+
+        store = device_object_store()
+        t = store.fetch(ref)
+        return {"sha256": _sha256(t), "device": str(t.device),
+                "path": store.last_transfer_path}
+
+    def leave(self) -> None:
+        from ray_tpu_torch import collective as col
+
+        col.destroy_collective_group("gloo-2")
+
+
+def dist_collectives(rt, device) -> dict:
+    """11a's process groups: NCCL at world 1 in a whole-card actor (every
+    op returns what world 1 must; two NCCL ranks on one card refused), and
+    gloo at world 2 in two half-card actors (every op on CUDA tensors of
+    ``GLOO_SIZES`` against numpy here, the tuner, the recorder, a
+    ``DeviceRef`` fetched through the group, the collective re-probe).  A
+    rehearsal on the CPU (``device="cpu"``) has no NCCL and skips it."""
+    rep = nccl_collectives(rt) if device != "cpu" else {}
+    rep["gloo_world_2"] = gloo_collectives(rt, device)
+    return rep
+
+
+def nccl_collectives(rt) -> dict:
+    """11a's NCCL groups: world 1 in a whole-card actor, where every op on
+    64 MiB must return what world 1 must, and two half-card ranks, which
+    must be refused."""
+    rep = {}
+    wait_card_free(rt)
+    member = rt.remote(num_gpus=1)(_NcclMember).remote()
+    rep["nccl_world_1"] = rt.get(member.world_one.remote(64 << 20),
+                                 timeout=600)
+    rt.kill(member)
+    bad = [k for k, ok in rep["nccl_world_1"]["ok"].items() if not ok]
+    if bad or rep["nccl_world_1"]["visible"] != "0":
+        raise AssertionError(f"11a NCCL world 1: {rep['nccl_world_1']}")
+    wait_card_free(rt)
+    pair = [rt.remote(num_gpus=0.5)(_NcclMember).remote() for _ in range(2)]
+    refusals = rt.get([m.refused.remote(r) for r, m in enumerate(pair)],
+                      timeout=600)
+    for m in pair:
+        rt.kill(m)
+    if not all(r and "same card" in r for r in refusals):
+        raise AssertionError(f"11a: two NCCL ranks on one card: {refusals}")
+    rep["nccl_two_ranks_one_card"] = refusals[0]
+    return rep
+
+
+def gloo_collectives(rt, device) -> dict:
+    """11a's gloo pair, each rank in a half-card actor."""
+    from ray_tpu_torch.util import remediation
+
+    want_device = "cpu" if device == "cpu" else "cuda:0"
+    wait_card_free(rt)
+    pair = [rt.remote(num_gpus=0.5, max_concurrency=2)(_GlooMember).remote()
+            for _ in range(2)]
+    visible = rt.get([m.join.remote(r) for r, m in enumerate(pair)],
+                     timeout=600)
+    ops = rt.get([m.ops.remote(COLL_SEED, GLOO_SIZES, device)
+                  for m in pair], timeout=900)
+    problems, gbps = [], {}
+    for nbytes in GLOO_SIZES:
+        want = _gloo_expected(COLL_SEED, nbytes // 4)
+        for name, shas in want.items():
+            key = f"{name} {nbytes}"
+            for r in range(2):
+                got = ops[r][key]
+                if got["sha256"] != shas[r] or got["device"] != want_device:
+                    problems.append(f"{key} rank {r}: {got}")
+            gbps[key] = nbytes / max(ops[0][key]["ms"], ops[1][key]["ms"]) \
+                / 1e6
+    tuned = rt.get([m.tuned.remote(1 << 20, device) for m in pair],
+                   timeout=600)
+    for r, t in enumerate(tuned):
+        if not all(t["exact"]):
+            problems.append(f"tuned allreduce rank {r}: {t['exact']}")
+        if t["q8_max_abs_err"] > 2 * 9 / 254 + 1e-5:
+            problems.append(f"q8 rank {r}: {t['q8_max_abs_err']}")
+        if not any(row["chosen"] for row in t["tuner"].values()):
+            problems.append(f"no committed tuner decision in rank {r}")
+    if tuned[0]["tuner"] != tuned[1]["tuner"] and {
+            k: v["chosen"] for k, v in tuned[0]["tuner"].items()} != {
+            k: v["chosen"] for k, v in tuned[1]["tuner"].items()}:
+        problems.append("the two ranks committed differently")
+    ref = rt.get(pair[0].put.remote(COLL_SEED, device), timeout=60)
+    served, fetched = rt.get([pair[0].serve.remote(ref),
+                              pair[1].fetch.remote(ref)], timeout=600)
+    if fetched != {"sha256": served, "device": want_device,
+                   "path": "collective"}:
+        problems.append(f"DeviceRef through the group: {fetched} against "
+                        f"the owner's {served}")
+    recorded = rt.get([m.recorder.remote() for m in pair], timeout=60)
+    for r, rec in enumerate(recorded):
+        if not rec["algos"] or rec["q8_bytes_saved"] <= 0:
+            problems.append(f"recorder rank {r}: {rec}")
+    reprobe = remediation._builtin_collective_reprobe(
+        "chip_smoke 11a", None, op="allreduce")
+    rt.get([m.leave.remote() for m in pair], timeout=60)
+    for m in pair:
+        rt.kill(m)
+    if problems or visible != ["0", "0"]:
+        raise AssertionError(f"11a gloo pair (leases {visible}): {problems}")
+    return {
+        "visible": visible, "gb_per_s": gbps,
+        "staged_bytes": tuned[0]["staged"],
+        "tuner": {k: v["chosen"] for k, v in tuned[0]["tuner"].items()},
+        "q8_max_abs_err": max(t["q8_max_abs_err"] for t in tuned),
+        "recorder": recorded, "device_ref": fetched, "reprobe": reprobe}
+
+
+def _train_loop(config):
+    """11b-d's ``train_loop_per_worker``: GPT-2 on the leased card, its
+    batches from the ``"train"`` dataset shard, gradients MEAN-allreduced
+    through ``ray_tpu_torch.collective`` when the gang has more than one
+    rank, a ``torch_ckpt`` checkpoint every ``ckpt_every`` steps, resumed
+    from the latest checkpoint (on the card) when there is one, and each
+    step's flash launches reported."""
+    import hashlib
+    import json
+    import os
+    import tempfile
+    import time
+
+    import torch
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch import collective as col
+    from ray_tpu_torch.collective.types import ReduceOp
+    from ray_tpu_torch.models import GPT2Config, model_family
+    from ray_tpu_torch.ops.attention import (
+        flash_attention, flash_dkv, flash_dq,
+    )
+    from ray_tpu_torch.train.torch_ckpt import (
+        async_save_sharded, restore_sharded,
+    )
+
+    ctx = train.get_context()
+    rank, world = ctx.world_rank, ctx.world_size
+    device = config["device"]
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    if world > 1:
+        col.init_collective_group(world, rank, backend="gloo")
+    cfg = GPT2Config(**config["cfg"])
+    fam = model_family(cfg)
+    params = fam.init(torch.Generator(device).manual_seed(config["seed"]),
+                      cfg, device=device)
+    params.requires_grad_(True)
+    if config["optimizer"] == "adamw":
+        opt = torch.optim.AdamW(params.parameters(), lr=config["lr"],
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+    else:
+        opt = torch.optim.SGD(params.parameters(), lr=config["lr"])
+
+    def state():
+        return {"model": params.state_dict(), "opt": opt.state_dict()}
+
+    def digest():
+        h = hashlib.sha256()
+        for t in params.state_dict().values():
+            h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    start = 0
+    ck = train.get_checkpoint()
+    if ck is not None:
+        # The optimizer's state takes its shape from one step; the
+        # restored tensors then replace the step's every effect.
+        for p in params.parameters():
+            p.grad = torch.zeros_like(p)
+        opt.step()
+        restored = restore_sharded(state(), ck.path, device=device)
+        params.load_state_dict(restored["model"])
+        opt.load_state_dict(restored["opt"])
+        with open(os.path.join(ck.path, "meta.json")) as f:
+            start = json.load(f)["step"]
+    shard = train.get_dataset_shard("train")
+
+    def counts():
+        return [flash_attention.launches, flash_dq.launches,
+                flash_dkv.launches]
+
+    warmup, t_timed = config["warmup"], None
+    saves = []
+    for step in range(start, config["steps"]):
+        if step == warmup:
+            sync()
+            t_timed = time.perf_counter()
+        if step == config.get("fail_at") and not os.path.exists(
+                config["marker"]):
+            open(config["marker"], "w").close()
+            os._exit(1)  # the hard exit of 11c, once
+        before = counts()
+        batch = next(iter(shard.iter_batches(batch_size=config["batch"],
+                                             batch_format="numpy")))
+        tokens = torch.from_numpy(batch).to(device)
+        opt.zero_grad(set_to_none=True)
+        loss = fam.loss(params, tokens, cfg)
+        loss.backward()
+        if world > 1:
+            for p in params.parameters():
+                p.grad = col.allreduce(p.grad, op=ReduceOp.MEAN)
+        opt.step()
+        metrics = {"step": step, "loss": float(loss), "start": start,
+                   "launches": [a - b for a, b in zip(counts(), before)]}
+        ckpt = None
+        if (step + 1) % config["ckpt_every"] == 0:
+            d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+            handle = async_save_sharded(state(), d)
+            with open(os.path.join(d, "meta.json"), "w") as f:
+                json.dump({"step": step + 1}, f)
+            handle.wait()
+            saves.append({"host_copy_ms": handle.host_copy_s * 1e3,
+                          "write_ms": handle.write_s * 1e3})
+            metrics["sha256"] = digest()
+            ckpt = train.Checkpoint.from_directory(d) if rank == 0 else None
+        train.report(metrics, checkpoint=ckpt)
+    sync()
+    summary = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "backend": ctx.backend, "saves": saves,
+               "timed_step_ms": (time.perf_counter() - t_timed)
+               / (config["steps"] - warmup) * 1e3
+               if t_timed is not None else None}
+    if world > 1:
+        # Every rank's launches and parameters, gathered to rank 0.
+        mine = torch.tensor(counts() + [int(digest()[:12], 16)],
+                            dtype=torch.float64)
+        summary["ranks"] = [t.tolist() for t in col.allgather(mine)]
+        col.destroy_collective_group()
+    train.report(summary)
+
+
+def _token_rows(n: int, seq: int, vocab: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return list(rng.integers(0, vocab, (n, seq + 1)))
+
+
+def _fit(rt, rd, *, config, rows, parallelism=1, workers=1, gpus=1.0,
+         max_failures=0):
+    """One ``TorchTrainer`` fit of ``_train_loop`` over ``rows``, after the
+    whole card is free.  A rehearsal on the CPU runs gloo where a whole
+    card would take NCCL."""
+    import ray_tpu_torch.train as rtrain
+
+    wait_card_free(rt)
+    t0 = time.perf_counter()
+    backend = rtrain.TorchBackend("gloo" if config["device"] == "cpu"
+                                  else None)
+    result = rtrain.TorchTrainer(
+        _train_loop, train_loop_config=config,
+        scaling_config=rtrain.ScalingConfig(
+            num_workers=workers, use_gpu=True, gpus_per_worker=gpus),
+        run_config=rtrain.RunConfig(
+            name="phase11", storage_path=tempfile.mkdtemp(
+                prefix="chip_smoke_train_"),
+            failure_config=rtrain.FailureConfig(max_failures=max_failures)),
+        datasets={"train": rd.from_items(rows, parallelism=parallelism)},
+        backend=backend,
+    ).fit()
+    if result.error is not None:
+        raise AssertionError(f"phase 11 fit failed: {result.error!r}")
+    result.wall_s = time.perf_counter() - t0
+    return result
+
+
+def _steps(result) -> dict:
+    """The per-step reports of rank 0, by step (a resumed run's last)."""
+    return {m["step"]: m for m in result.metrics_history if "loss" in m}
+
+
+def _restore_sha(ckpt, cfg, seed: int, device) -> str:
+    """sha256 of the checkpoint's model, restored onto ``device``."""
+    import hashlib
+
+    from ray_tpu_torch.train.torch_ckpt import restore_sharded
+
+    fam = model_family(cfg)
+    like = fam.init(torch.Generator(device).manual_seed(seed), cfg,
+                    device=device)
+    got = restore_sharded({"model": like.state_dict()}, ckpt.path,
+                          device=device)["model"]
+    h = hashlib.sha256()
+    for t in got.values():
+        h.update(t.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    del like, got
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return h.hexdigest()
+
+
+def trainer_full_width(rt, rd, cfg, batch: int, seq: int, warmup: int,
+                       steps: int, device) -> dict:
+    """11b: ``_train_loop`` in one ``TorchTrainer`` worker leasing the card
+    (NCCL, world 1) at phase 5's model and batch, fed by a dataset."""
+    n_layer = cfg.n_layer
+    config = {"cfg": dataclasses.asdict(cfg), "seed": SEED + 4, "optimizer": "adamw", "lr": 1e-4,
+              "batch": batch, "warmup": warmup, "steps": warmup + steps,
+              "ckpt_every": TRAIN_CKPT_EVERY, "device": device}
+    result = _fit(rt, rd, config=config,
+                  rows=_token_rows(batch, seq, cfg.vocab_size, SEED + 5))
+    per_step = _steps(result)
+    want = [n_layer * (2 if cfg.remat else 1), n_layer, n_layer]
+    losses = [per_step[s]["loss"] for s in sorted(per_step)]
+    summary = result.metrics
+    problems = [f"step {s}: launches {m['launches']}, want {want}"
+                for s, m in per_step.items() if m["launches"] != want]
+    if len(per_step) != warmup + steps:
+        problems.append(f"{len(per_step)} steps reported")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}")
+    backend = "gloo" if device == "cpu" else "nccl"
+    if summary.get("visible") != "0" or summary.get("torch_backend") != \
+            backend or summary.get("backend") != backend:
+        problems.append(f"lease/backend {summary}")
+    last = max((s for s, m in per_step.items() if "sha256" in m),
+               default=None)
+    if result.checkpoint is None or last is None:
+        problems.append("the result has no checkpoint")
+    elif _restore_sha(result.checkpoint, cfg, SEED + 4, device) != \
+            per_step[last]["sha256"]:
+        problems.append(f"the checkpoint of step {last} does not restore "
+                        "bit for bit")
+    if problems:
+        raise AssertionError(f"11b: {problems}")
+    step_ms = summary["timed_step_ms"]
+    return {"batch": batch, "seq": seq, "n_layer": n_layer,
+            "steps": warmup + steps, "losses": losses,
+            "step_ms": step_ms, "tokens_per_s": batch * seq / step_ms * 1e3,
+            "launches_per_step": want,
+            "launches": [sum(m["launches"][i] for m in per_step.values())
+                         for i in range(3)],
+            "saves": summary["saves"], "checkpoint_step": last + 1,
+            "fit_s": result.wall_s, "visible": summary["visible"],
+            "backend": summary["torch_backend"]}
+
+
+def trainer_resume(rt, rd, cfg, seq: int, device) -> dict:
+    """11c: the same loop at 2 layers and f32 with ``max_failures=1``; the
+    first attempt hard-exits at step 4, right after its checkpoint at step
+    3; the second restores on the card.  Its losses from step 4 on must
+    equal an uninterrupted run's at 1e-5 relative."""
+    marker = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_fail_"),
+                          "failed_once")
+    small = dataclasses.replace(cfg, n_layer=2, dtype="float32")
+    config = {"cfg": dataclasses.asdict(small), "seed": SEED + 70,
+              "optimizer": "adamw", "lr": 1e-3, "batch": RESUME_BATCH,
+              "warmup": 0, "steps": RESUME_STEPS,
+              "ckpt_every": RESUME_FAIL_AT, "fail_at": RESUME_FAIL_AT,
+              "marker": marker, "device": device}
+    rows = _token_rows(RESUME_BATCH, seq, cfg.vocab_size, SEED + 71)
+    resumed = _fit(rt, rd, config=config, rows=rows, max_failures=1)
+    clean = _fit(rt, rd, config={**config, "fail_at": None}, rows=rows)
+    # The first attempt's last reports may die with it, unpolled; the
+    # second attempt's start at step 4 shows its checkpoint was restored.
+    got, want = _steps(resumed), _steps(clean)
+    after = range(RESUME_FAIL_AT, RESUME_STEPS)
+    errs = {s: abs(got[s]["loss"] - want[s]["loss"]) / abs(want[s]["loss"])
+            for s in after if s in got}
+    if (not os.path.exists(marker) or len(errs) != len(after)
+            or max(errs.values()) > 1e-5
+            or {got[s]["start"] for s in after} != {RESUME_FAIL_AT}):
+        raise AssertionError(f"11c: marker {os.path.exists(marker)}, "
+                             f"steps {sorted(got)}, errors {errs}")
+    return {"losses_resumed": [got[s]["loss"] for s in sorted(got)],
+            "losses_clean": [want[s]["loss"] for s in sorted(want)],
+            "max_rel_err_from_step_4": max(errs.values()),
+            "fit_s_resumed": resumed.wall_s, "fit_s_clean": clean.wall_s}
+
+
+def trainer_data_parallel(rt, rd, cfg, seq: int, device) -> dict:
+    """11d: two workers leasing half the card each (gloo, CUDA tensors),
+    each on its half of a seeded batch, gradients MEAN-allreduced through a
+    collective group of the loop; SGD, 2 layers, f32.  Both ranks'
+    parameters must be equal, and equal a one-worker run on the whole batch
+    at 1e-4 relative."""
+    small = dataclasses.replace(cfg, n_layer=2, dtype="float32")
+    config = {"cfg": dataclasses.asdict(small), "seed": SEED + 80,
+              "optimizer": "sgd", "lr": DP_LR, "warmup": 0,
+              "steps": DP_STEPS, "ckpt_every": DP_STEPS, "device": device}
+    rows = _token_rows(DP_BATCH, seq, cfg.vocab_size, SEED + 81)
+    two = _fit(rt, rd, config={**config, "batch": DP_BATCH // 2}, rows=rows,
+               parallelism=2, workers=2, gpus=0.5)
+    one = _fit(rt, rd, config={**config, "batch": DP_BATCH}, rows=rows,
+               parallelism=2, gpus=0.5)
+    from ray_tpu_torch.train.torch_ckpt import restore_sharded
+
+    fam = model_family(small)
+    like = {"model": fam.init(torch.Generator(device).manual_seed(SEED + 80),
+                              small, device=device).state_dict()}
+    a = restore_sharded(like, two.checkpoint.path, device=device)["model"]
+    b = restore_sharded(like, one.checkpoint.path, device=device)["model"]
+    rel = {k: ((a[k] - b[k]).abs().max() / b[k].abs().max()).item()
+           for k in b}
+    ranks = two.metrics["ranks"]
+    # flash forward (twice under remat), dQ, dK/dV: a step at 2 layers
+    want = [2 * (2 if small.remat else 1), 2, 2]
+    problems = []
+    if ranks[0][3] != ranks[1][3]:
+        problems.append("the two ranks' parameters differ")
+    if max(rel.values()) > 1e-4:
+        problems.append(f"against one worker: {rel}")
+    for r, row in enumerate(ranks):
+        if [int(v) for v in row[:3]] != [w * DP_STEPS for w in want]:
+            problems.append(f"rank {r} launched {row[:3]}")
+    if two.metrics["torch_backend"] != "gloo":
+        problems.append(f"backend {two.metrics}")
+    if problems:
+        raise AssertionError(f"11d: {problems}")
+    del a, b, like
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {"max_rel_err_vs_one_worker": max(rel.values()),
+            "launches_by_rank": [row[:3] for row in ranks],
+            "losses_two": [m["loss"] for m in
+                           sorted(_steps(two).values(),
+                                  key=lambda m: m["step"])],
+            "losses_one": [m["loss"] for m in
+                           sorted(_steps(one).values(),
+                                  key=lambda m: m["step"])],
+            "fit_s_two": two.wall_s, "fit_s_one": one.wall_s,
+            "backend": two.metrics["torch_backend"]}
+
+
+def train_phase(train_cfg, batch: int, seq: int, warmup: int, steps: int,
+                device="cuda", local_sizes=LOCAL_SIZES,
+                init_kwargs=None) -> dict:
+    """Phase 11: the collective layer and Train on the card, under a fresh
+    ``ray_tpu_torch.init(num_cpus=4)``.  Every process it starts is
+    stopped before it returns."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    rep = {"local": local_collectives(device, local_sizes)}
+    rt.init(num_cpus=4, **(init_kwargs or {}))
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"detected {rt.cluster_resources()}")
+        rep["dist"] = dist_collectives(rt, device)
+        rep["trainer"] = trainer_full_width(rt, rd, train_cfg, batch, seq,
+                                            warmup, steps, device)
+        rep["resume"] = trainer_resume(rt, rd, train_cfg, seq, device)
+        rep["data_parallel"] = trainer_data_parallel(rt, rd, train_cfg, seq,
+                                                     device)
+    finally:
+        rt.shutdown()
+    return rep
+
+
+def report_train_phase(card: str, tp: dict, phase5: dict) -> None:
+    """Phase 11's readings: one line of numbers, then the report as JSON."""
+    tr, gl = tp["trainer"], tp["dist"]["gloo_world_2"]["gb_per_s"]
+    big = max(GLOO_SIZES)
+    print(f"train on {card}: 11b TorchTrainer worker {tr['step_ms']:.2f} ms "
+          f"a step, {tr['tokens_per_s']:.1f} tokens/s (phase 5 in the "
+          f"script's process: {phase5['mean_step_ms']:.2f} ms, "
+          f"{phase5['tokens_per_s']:.1f}; ratio "
+          f"{tr['step_ms'] / phase5['mean_step_ms']:.3f}), checkpoint save "
+          f"ms (caller's copy / background write) "
+          f"{[(round(s['host_copy_ms'], 1), round(s['write_ms'], 1)) for s in tr['saves']]}"
+          f"; 11c resumed losses within "
+          f"{tp['resume']['max_rel_err_from_step_4']:.2e} of an "
+          f"uninterrupted run; 11d two half-card ranks within "
+          f"{tp['data_parallel']['max_rel_err_vs_one_worker']:.2e} of one "
+          f"worker; gloo GB/s at {big} B: "
+          f"{ {k.split()[0]: round(v, 3) for k, v in gl.items() if k.endswith(str(big))} }",
+          flush=True)
+    print("collective_train " + json.dumps(tp), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2802,6 +3675,15 @@ def main() -> int:
     report_data_phase(card, dp)
     c1, c2 = dp["counted"]["n=1"], dp["counted"]["n=2"]
 
+    # Phase 11: the collective layer and Train, the training step in a
+    # TorchTrainer worker that leases the card.
+    tp = train_phase(GPT2Config.small(dtype="bfloat16", attention="flash",
+                                      remat=True), 32, 1024, 3, 10)
+    report_train_phase(card, tp, train_rep)
+    worker_launches = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                               tp["trainer"]["launches"]))
+    dp_ranks = tp["data_parallel"]["launches_by_rank"]
+
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
     # cores fed by TMA, or f32 FMAs (f32 runs FMAs everywhere).
@@ -2839,6 +3721,10 @@ def main() -> int:
          "replaces": "ray_tpu/ops/attention.py:55", "design": "wgmma+tma",
          "launches": main_launches["flash_fwd"],
          "launches_train_gpt2_small": train_launches["flash_fwd"],
+         # Phase 11: in the TorchTrainer worker (11b), and in each of
+         # 11d's two half-card ranks.
+         "launches_train_worker": worker_launches["flash_fwd"],
+         "launches_dp_ranks": [int(r[0]) for r in dp_ranks],
          "launches_cb": cb["launches"]["flash_fwd"],
          "launches_runtime_actor": actor_launches["flash_fwd"],
          # Phase 9: the OpenAI app's replica, and the prefill actor.
@@ -2857,8 +3743,9 @@ def main() -> int:
              "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err")}},
     ]
-    for name, key, line, design in (("flash_dq", "dq", 144, "wgmma+tma"),
-                                    ("flash_dkv", "dkv", 191, "wgmma+tma")):
+    for i, (name, key, line, design) in enumerate((
+            ("flash_dq", "dq", 144, "wgmma+tma"),
+            ("flash_dkv", "dkv", 191, "wgmma+tma")), start=1):
         rec = bwd_train[key]
         errs = [bwd_train["max_abs_err"][g]
                 for g in (("dq",) if key == "dq" else ("dk", "dv"))]
@@ -2867,6 +3754,8 @@ def main() -> int:
             "source": "ray_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/attention.py:{line}", "design": design,
             "launches": train_launches[name],
+            "launches_train_worker": worker_launches[name],
+            "launches_dp_ranks": [int(r[i]) for r in dp_ranks],
             "max_abs_err": max(errs),
             "ms": rec["ms"], "event_ms": rec["event_ms"],
             "plain_ms": rec["plain_ms"],

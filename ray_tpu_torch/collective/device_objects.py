@@ -14,10 +14,11 @@ Integration point: actors made with ``tensor_transport="device"`` return
 ``DeviceRef``s for the tensors in their results and resolve ``DeviceRef``s
 in their arguments (``core/core_worker.py``).
 
-What waits for ROADMAP A4: the collective-group path of ``fetch`` (all
-members of a group receive the tensor by a broadcast from its owner rank).
-A ref that is not resident here and whose owner cannot be asked (made
-outside a runtime process, or the owner no longer holds it) raises
+Members of a collective group that holds the ref's group name receive the
+tensor by a broadcast from its owner rank instead (``fetch`` on every
+member, ``serve_fetch`` on the owner).  A ref that is not resident here,
+has no group here and whose owner cannot be asked (made outside a runtime
+process, or the owner no longer holds it) raises
 ``RemoteDeviceObjectError``.
 """
 
@@ -64,7 +65,7 @@ class DeviceObjectStore:
         self._refcounts: Dict[ObjectID, int] = {}
         self._lock = threading.Lock()
         # Instrumentation: how the most recent resolution went — "local" |
-        # "p2p_rpc" (tests assert the transfer path).
+        # "collective" | "p2p_rpc" (tests assert the transfer path).
         self.last_transfer_path: Optional[str] = None
 
     def put(self, tensor: "torch.Tensor", group_name: str = "default",
@@ -125,14 +126,39 @@ class DeviceObjectStore:
 
         1. local hit → the resident tensor, zero movement;
         2. owner_address set → point-to-point RPC to the owning worker
-           (one host hop; works anywhere in the cluster).
+           (one host hop; works anywhere in the cluster);
+        3. fall back to a collective broadcast from the owner rank — all
+           group members must call fetch() collectively (the reference's
+           NCCL-transport shape; pair with ``serve_fetch`` on the owner).
         """
         if self.contains(ref):
             self.last_transfer_path = "local"
             return self.get_local(ref)
-        out = array_from_fetch_reply(ref, self._owner_call(ref, "device_fetch"))
+        from .collective import is_group_initialized
+
+        if is_group_initialized(ref.group_name):
+            # Collective path: the transfer is a broadcast over the group
+            # (NCCL between cards), no RPC.  All group members call
+            # fetch() collectively; the owner pairs it with serve_fetch().
+            from .collective import get_group
+
+            group = get_group(ref.group_name)
+            import torch
+
+            device = getattr(group, "device", None) or group.devices[0]
+            placeholder = torch.zeros(
+                ref.shape, dtype=getattr(torch, ref.dtype.split(".")[-1]),
+                device=device,
+            )
+            out = group.broadcast(placeholder, src_rank=ref.owner_rank)
+            self.last_transfer_path = "collective"
+            return out
+        out = self._fetch_rpc(ref)
         self.last_transfer_path = "p2p_rpc"
         return out
+
+    def _fetch_rpc(self, ref: DeviceRef) -> "torch.Tensor":
+        return array_from_fetch_reply(ref, self._owner_call(ref, "device_fetch"))
 
     def free(self, ref: DeviceRef) -> bool:
         """Drop one reference; the tensor leaves the card at refcount zero.
@@ -161,6 +187,13 @@ class DeviceObjectStore:
                     return False
         return False
 
+    def serve_fetch(self, ref: DeviceRef):
+        """Owner side of a collective fetch."""
+        from .collective import get_group
+
+        group = get_group(ref.group_name)
+        return group.broadcast(self.get_local(ref), src_rank=ref.owner_rank)
+
     def __len__(self):
         return len(self._objects)
 
@@ -169,7 +202,7 @@ def _no_owner(ref: DeviceRef) -> RemoteDeviceObjectError:
     return RemoteDeviceObjectError(
         f"device object {ref.object_id} is not resident in this process and "
         "has no owner address to fetch it from (made outside a runtime "
-        "process; the collective-group fetch waits for ROADMAP A4)"
+        "process) and no collective group here to receive it by"
     )
 
 

@@ -3755,7 +3755,7 @@ class CoreWorker:
                 )
                 out.append(array_from_fetch_reply(v, reply))
                 store.last_transfer_path = "p2p_rpc"
-            else:  # no owner to ask: raises (collective fallback is A4)
+            else:  # collective-group fallback (owner must serve_fetch)
                 out.append(store.fetch(v))
         return pytree.tree_unflatten(out, treedef)
 

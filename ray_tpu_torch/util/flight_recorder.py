@@ -455,6 +455,13 @@ def record_collective(op: str, backend: str, nbytes: int, world_size: int,
     _metrics._record_batch(entries)
 
 
+def _payload_dtype(tensor):
+    """dtype of one op's input (first leaf of a per-rank list)."""
+    if isinstance(tensor, (list, tuple)):
+        return _payload_dtype(tensor[0]) if tensor else "float32"
+    return getattr(tensor, "dtype", "float32")
+
+
 def _shape_sig(tensor) -> tuple:
     if isinstance(tensor, (list, tuple)):
         return (len(tensor),) + (
@@ -523,9 +530,11 @@ def _wrap_collective_op(fn, op: str, backend: str, group, seen_keys: set):
             # Keyed on the EXECUTED algorithm, not the request: a
             # quantized=True call that lowered to plain flat (e.g.
             # world_size 1) exchanged exact bytes and saved nothing.
-            raise NotImplementedError(
-                "the collective algorithms (ray_tpu_torch.collective."
-                "algorithms) are not ported yet: ROADMAP A4"
+            from ..collective import algorithms as _alg
+
+            wire = _alg.quantized_wire_bytes(
+                nbytes, _payload_dtype(tensor),
+                GlobalConfig.collective_quant_block_size,
             )
         record_collective(
             op, backend, nbytes, world, dt, cold=cold,
@@ -551,9 +560,12 @@ def _wrap_collective_op(fn, op: str, backend: str, group, seen_keys: set):
         if decision is not None:
             # Close the loop: the achieved-bandwidth sample drives the
             # online autotuner's next selection for this bucket.
-            raise NotImplementedError(
-                "the collective tuner (ray_tpu_torch.collective.tuner) is "
-                "not ported yet: ROADMAP A4"
+            from ..collective.tuner import get_tuner
+
+            get_tuner().observe(
+                op, decision["nbytes"], decision["world_size"],
+                getattr(group, "topology", None), decision["algo"],
+                nbytes / max(dt, 1e-9), cold=cold,
             )
         return out
 

@@ -272,10 +272,14 @@ def _builtin_collective_reprobe(target: str, violation,
     """Arm the local tuner's forced re-probe AND broadcast the directive
     to every worker via the node agents, so multi-member groups re-probe
     in lockstep (see ``CollectiveTuner.force_reprobe``)."""
-    raise NotImplementedError(
-        "the collective tuner (ray_tpu_torch.collective.tuner) is not "
-        "ported yet: ROADMAP A4"
+    from ..collective.tuner import get_tuner
+
+    armed = get_tuner().force_reprobe(op)
+    reached = broadcast_directive(
+        {"kind": ACTION_COLLECTIVE_REPROBE, "op": op, "target": target}
     )
+    return (f"armed {armed} local bucket(s); directive reached "
+            f"{reached} worker(s)")
 
 
 _BUILTIN_ACTUATORS[ACTION_SERVE_SCALE_UP] = _builtin_serve_scale_up
@@ -335,10 +339,10 @@ def apply_local_directive(directive: Dict[str, Any]) -> Dict[str, Any]:
     ``remediate`` RPC handler lands here)."""
     kind = directive.get("kind")
     if kind == ACTION_COLLECTIVE_REPROBE:
-        raise NotImplementedError(
-            "the collective tuner (ray_tpu_torch.collective.tuner) is not "
-            "ported yet: ROADMAP A4"
-        )
+        from ..collective.tuner import get_tuner
+
+        return {"kind": kind,
+                "armed": get_tuner().force_reprobe(directive.get("op"))}
     fn = _registered_actuator(kind, directive.get("target", "*"))
     if fn is None:
         return {"kind": kind, "error": "no local actuator"}

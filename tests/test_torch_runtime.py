@@ -536,11 +536,12 @@ def test_unported_layers_say_which_roadmap_item(port):
     fn = _visible_devices_task(port)
     with pytest.raises(NotImplementedError, match="A1d"):
         fn.bind("", 1)
+    # The collective re-probe no longer waits for A4: it arms the tuner.
     from ray_tpu_torch.util import remediation
 
-    with pytest.raises(NotImplementedError, match="A4"):
-        remediation.apply_local_directive(
-            {"kind": remediation.ACTION_COLLECTIVE_REPROBE})
+    assert remediation.apply_local_directive(
+        {"kind": remediation.ACTION_COLLECTIVE_REPROBE}) == {
+            "kind": remediation.ACTION_COLLECTIVE_REPROBE, "armed": 0}
 
 
 @pytest.mark.parametrize("algo,what", [
@@ -548,18 +549,37 @@ def test_unported_layers_say_which_roadmap_item(port):
     ("flat", "collective tuner"),
 ])
 def test_recorded_collective_says_it_waits_for_a4(monkeypatch, algo, what):
+    """What waited for A4 now runs: a q8 op's wire bytes reach the
+    quantized counters (the collective algorithms), and a warm op's
+    bandwidth reaches the tuner."""
+    from ray_tpu_torch.collective import algorithms, tuner
     from ray_tpu_torch.core.config import GlobalConfig
-    from ray_tpu_torch.util import flight_recorder
+    from ray_tpu_torch.util import flight_recorder, metric_registry, metrics
 
     class Group:
         world_size = 2
+        topology = None
 
         def allreduce(self, x):
-            self._last_decision = {"algo": algo, "nbytes": 4,
+            self._last_decision = {"algo": algo, "nbytes": 4096,
                                    "world_size": 2}
             return x
 
+    def saved():
+        with metrics._lock:
+            return sum(ent["value"] for (name, _t), ent in metrics._local.items()
+                       if name ==
+                       metric_registry.COLLECTIVE_QUANTIZED_BYTES_SAVED_TOTAL)
+
     monkeypatch.setattr(GlobalConfig, "enable_flight_recorder", True)
+    tuner.reset_tuner()
     group = flight_recorder.instrument_group(Group(), "test")
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A4"):
-        group.allreduce(torch.ones(1))
+    before = saved()
+    for _ in range(2):  # the first call of a shape is cold, the second warm
+        group.allreduce(torch.ones(1024))
+    wire = algorithms.quantized_wire_bytes(4096, torch.float32)
+    assert saved() - before == (2 * (4096 - wire) if what ==
+                                "collective algorithms" else 0)
+    bucket = next(iter(tuner.get_tuner()._buckets.values()))
+    assert bucket.algos[algo].samples == 1
+    tuner.reset_tuner()

@@ -9,9 +9,10 @@ change on either side (a fix made in the JAX twin and not carried over, an
 edit to the port) changes the diff and fails until the new diff is
 reviewed and its digest, which the failure prints, is written down.  A
 listed file that no longer differs fails too, so the list stays exact; a
-module of ``ray_tpu/{core,data,serve,util}`` with no twin must be listed
-in ``WAITING`` with the ROADMAP item it waits for, and a port module with
-no twin in ``PORT_ONLY``.
+module of ``ray_tpu/{collective,core,data,serve,train,util}`` with no twin
+must be listed in ``WAITING`` with the ROADMAP item it waits for, or in
+``COUNTERPARTS`` beside the port module that takes its place under another
+name, and a port module with no twin in ``PORT_ONLY``.
 """
 
 import difflib
@@ -26,7 +27,8 @@ JAX_PKG = os.path.join(REPO, "ray_tpu")
 PORT_PKG = os.path.join(REPO, "ray_tpu_torch")
 
 # The runtime's files, relative to each package root.
-RUNTIME_DIRS = ("core", "data", "serve", "util", "util/state")
+RUNTIME_DIRS = ("collective", "core", "data", "serve", "train", "util",
+                "util/state")
 RUNTIME_FILES = ("__init__.py", "_version.py", "api.py",
                  "collective/device_objects.py", "collective/p2p.py")
 
@@ -35,9 +37,38 @@ DIVERGES = {
     "__init__.py": ("the port's package docstring; its public names, "
                     "`resolve_device` (torch) among them, resolve lazily, "
                     "and it has no `dag` yet", "bb3a882fcce3f148"),
+    "collective/__init__.py": ("exports LocalGroup and DistGroup, the "
+                               "groups' classes, and RemoteDeviceObjectError",
+                               "64c469fc67764e8e"),
+    "collective/algorithms.py": ("the algorithms over each group's exchange "
+                                 "(`Comm`: per-rank tensor lists or "
+                                 "send/recv) in place of shard_map bodies, "
+                                 "same step schedules; quantization on "
+                                 "tensors; torch dtype names",
+                                 "2f0ddaf5862560ce"),
+    "collective/bench_collective.py": ("stages over a LocalGroup on the card "
+                                       "(or `--device`), and op_bandwidth "
+                                       "for any group, in place of jitted "
+                                       "shard_maps on a virtual CPU mesh",
+                                       "6ea775b5c546e985"),
+    "collective/collective.py": ("GroupManager makes LocalGroup or "
+                                 "DistGroup; nccl is the default backend; "
+                                 "collective_stats adds gloo's host-staged "
+                                 "bytes; send carries torch tensors as they "
+                                 "are", "6368329f7b3dc572"),
     "collective/device_objects.py": ("torch tensors in place of jax.Arrays; "
-                                     "no collective-group fetch (A4)",
-                                     "2c51e21bee5b0b1b"),
+                                     "the collective-group fetch lands in a "
+                                     "buffer on the group's device",
+                                     "7f8853b33c864750"),
+    "collective/experimental.py": ("a local group's ranks on `device` (the "
+                                   "card unless named) in place of "
+                                   "jax.devices()", "dcba212bdf9a837e"),
+    "collective/local_group.py": ("LocalGroup: per-rank torch tensors and "
+                                  "device copies in place of LocalXlaGroup's "
+                                  "jitted shard_maps", "1feb5d65c49ffc91"),
+    "collective/types.py": ("Backend is nccl/gloo/local; the shard_map "
+                            "helpers are gone (their work is in the groups)",
+                            "fe5cdb67fe8c8233"),
     "core/accelerators.py": ("registers GPUAcceleratorManager",
                              "287f24ea863394d3"),
     "core/api_frontend.py": ("`.bind()` raises: dag waits for A1d",
@@ -46,7 +77,7 @@ DIVERGES = {
                             "and CUDA tensors; tensors are not cached as "
                             "given on put; the dag exec loop waits for A1d; "
                             "profiles go under the temp dir, not /tmp",
-                            "febbabffda5babc7"),
+                            "cf59d76025a00257"),
     "core/node.py": ("head info under the temp dir, not /tmp, so checkouts "
                      "with their own TMPDIR never share a head",
                      "c95c58f74848fc87"),
@@ -63,19 +94,43 @@ DIVERGES = {
                               "name, shape) in place of jax.Array → numpy",
                               "f73e056089061164"),
     "util/flight_recorder.py": ("synchronizes CUDA streams in place of "
-                                "jax.block_until_ready; the collective "
-                                "algorithms and tuner raise (A4)",
-                                "ac97eb8242831d71"),
-    "util/remediation.py": ("collective re-probe raises (A4)",
-                            "f323f8d9131a4c35"),
+                                "jax.block_until_ready",
+                                "f1490ad47578784a"),
+    "train/__init__.py": ("no JaxBackend and JaxTrainer (TorchBackend and "
+                          "TorchTrainer take their role); the pipeline names "
+                          "wait for train/pipeline.py", "dd7d8a6cc32ce2d5"),
+    "train/backend.py": ("TorchBackend picks nccl or gloo by the workers' "
+                         "card leases, as asked otherwise; no JaxBackend",
+                         "e23b21cce8f59e6e"),
+    "train/config.py": ("ScalingConfig leases GPUs (use_gpu, "
+                        "gpus_per_worker) in place of TPU chips",
+                        "4594720ffd68a5df"),
+    "train/session.py": ("TrainContext carries the torch.distributed "
+                         "backend", "f9c7130b1df0ec7c"),
+    "train/trainer.py": ("no JaxTrainer; the result's metrics name the "
+                         "torch backend", "e6392ec2901bc0a5"),
+    "train/worker_group.py": ("num_gpus leases in place of num_tpus; "
+                              "init_torch_distributed takes the backend and "
+                              "sets the leased card; no "
+                              "init_jax_distributed", "d06c4d372043a3c3"),
 }
 
-# Modules of ray_tpu/{core,data,serve,util} that the port has not copied yet, by the
-# ROADMAP item they wait for.
-WAITING = {}
+# Modules of the JAX package's runtime directories that the port has not
+# copied yet, by the ROADMAP item they wait for.
+WAITING = {"train/pipeline.py": "A2"}
 
 PORT_ONLY = {
     "core/gpu_detect.py": "NVIDIA GPU detection, beside tpu_detect.py",
+    "collective/dist_group.py": "DistGroup over torch.distributed, the "
+                                "counterpart of XlaGroup",
+    "train/torch_ckpt.py": "tensor checkpoints, the counterpart of the JAX "
+                           "checkpoint module",
+}
+
+# Port module -> the JAX module it takes the place of under another name.
+COUNTERPARTS = {
+    "collective/dist_group.py": "collective/xla_group.py",
+    "train/torch_ckpt.py": "train/jax_ckpt.py",
 }
 
 
@@ -133,7 +188,8 @@ def test_twin_is_a_copy_or_listed(rel):
 
 
 def test_every_jax_runtime_module_has_a_twin_or_waits():
-    missing = _modules(JAX_PKG) - _modules(PORT_PKG)
+    missing = (_modules(JAX_PKG) - _modules(PORT_PKG)
+               - set(COUNTERPARTS.values()))
     assert missing == set(WAITING), sorted(missing ^ set(WAITING))
     assert all(re.fullmatch(r"A\d\w*", item) for item in WAITING.values())
 
@@ -149,6 +205,9 @@ def test_lists_name_real_files_with_reasons():
         assert re.fullmatch(r"[0-9a-f]{16}", pinned), rel
     for rel in PORT_ONLY:
         assert os.path.exists(os.path.join(PORT_PKG, rel)), rel
+    for rel, twin in COUNTERPARTS.items():
+        assert rel in PORT_ONLY, rel
+        assert os.path.exists(os.path.join(JAX_PKG, twin)), twin
 
 
 def test_normalise_moves_names_and_prefixes_once():

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive ray_tpu_torch's serving and training paths, its runtime, its Data
-layer, its collective layer and Train on one NVIDIA GPU and check them.
+layer, its collective layer and Train, its DAGs, Tune and jobs on one
+NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -128,6 +129,28 @@ Phases (none is caught: any failure exits non-zero):
      loop (2 layers, f32, SGD, 5 steps): both ranks' parameters equal,
      and equal a one-worker run on the whole batch at 1e-4, every rank's
      flash launches counted.
+ 12. compiled DAGs, Tune, a job, the CLI and the dashboard, under a fresh
+     ``ray_tpu_torch.init(num_cpus=8)``: (a) GPT-2 small (bf16, flash) cut
+     at layer 6 over two half-card actors, ``InputNode`` -> stage A ->
+     stage B compiled; B=4 x S=1024 ids, the 6.3 MB residual stream on
+     the edge: the greedy ids equal one ``gpt2_apply`` here and the same
+     stages through ``.remote()``, 6 flash launches a stage a call; at
+     f32 and 2 layers the logits within 1e-4; ms per execute against the
+     ``.remote()`` chain at that payload and at one element (50 calls
+     after 5), the edge's host-copy share; an in-graph allreduce of two
+     half-card actors' CUDA tensors (f32 and bf16, 1 and 64 MiB) by the
+     host path and through a gloo ``DistGroup``: the sum in participant
+     order, exact at f32, 2e-2 at bf16, GB/s; (b) a ``Tuner`` over AdamW's
+     lr (two trials at once), each trial a ``TorchTrainer`` worker on half
+     the card training GPT-2 small (bf16, flash, remat, B=8 x S=1024, 6
+     steps): each trial's losses equal a direct fit's at 1e-5, 24/12/12
+     launches a step, the best trial the one with the lower last loss;
+     (c) ``python -m ray_tpu_torch job submit`` of an entrypoint that
+     joins with ``address="auto"`` and serves GPT-2 small from one
+     ``num_gpus=1`` task (4 prompts, 16 greedy tokens): ``SUCCEEDED``, the
+     ids in ``job logs`` equal the same engine's here, flash and decode
+     launches in the task, ``status`` and ``list nodes`` name the GPU, and
+     a dashboard started here answers with it.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -136,6 +159,7 @@ GPU is present.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
@@ -3456,6 +3480,634 @@ def report_train_phase(card: str, tp: dict, phase5: dict) -> None:
     print("collective_train " + json.dumps(tp), flush=True)
 
 
+# ----------------------------------------------------------------- phase 12
+# 12a: GPT-2 small split in two halves of its layers, one a half-card
+# actor; B=4 x S=1024 ids, so the residual stream on the edge is
+# 4 x 1024 x 768 bf16 (6.3 MB, under the channels' 8 MiB default).
+DAG_BATCH, DAG_SEQ = 4, 1024
+DAG_SEED = SEED + 90
+DAG_CALLS, DAG_WARMUP = 50, 5
+# The f32 check: 2 layers at full width, B=1 x S=128, logits compared.
+DAG_F32_SEQ = 128
+DAG_ALLREDUCE_SIZES = (1 << 20, 64 << 20)
+DAG_ALLREDUCE_CALLS = 5
+# 12b: two trials of a TorchTrainer each, one worker on half the card.
+TUNE_LRS = (3e-4, 3e-3)
+TUNE_BATCH, TUNE_STEPS = 8, 6
+TUNE_SEED = SEED + 100
+# 12c: a job serving GPT-2 small from one task leasing the card.
+JOB_PROMPTS = (4, 50, 400, SEED + 110)
+JOB_TOKENS = 16
+
+
+class _PipelineStage:
+    """One stage of GPT-2 cut by layers, written from the port's
+    ``_block``: the first stage embeds token ids, the last runs the final
+    norm and the tied head.  Every stage makes the whole model's seeded
+    weights (so all stages hold one model) and runs its own layers.  A
+    residual that came over a channel arrives on the host and moves to
+    this stage's card here."""
+
+    def __init__(self, cfg, seed: int, layers, first: bool, last: bool,
+                 device):
+        self.cfg, self.first, self.last = cfg, first, last
+        self.layers = list(layers)
+        self.device = torch.device(device)
+        self.params = model_family(cfg).init(
+            torch.Generator(device).manual_seed(seed), cfg, device=device)
+        self.calls = 0
+
+    def _run(self, x):
+        from ray_tpu_torch.models.gpt2 import _block, _layernorm
+
+        p = self.params
+        with torch.no_grad():
+            if self.first:
+                tokens = torch.as_tensor(x).to(self.device)
+                x = p["wte"][tokens] + p["wpe"][:tokens.shape[1]][None]
+            else:
+                x = x.to(self.device)
+            for layer in self.layers:
+                x = _block(x, p.layer(layer), self.cfg)
+            if self.last:
+                x = torch.einsum("bse,ve->bsv",
+                                 _layernorm(x, p["lnf_g"], p["lnf_b"]),
+                                 p["wte"])
+        self.calls += 1
+        return x
+
+    def forward(self, x):
+        """The residual stream; the last stage's greedy next ids."""
+        out = self._run(x)
+        return out.argmax(-1) if self.last else out
+
+    def logits(self, x):
+        return self._run(x)
+
+    def echo(self, x):
+        return x
+
+    def counts(self):
+        return {"flash_fwd": flash_attention.launches, "calls": self.calls}
+
+
+def _stages(rt, cfg, seed: int, device):
+    """Two half-card stages holding the first and the second half of
+    ``cfg``'s layers."""
+    stage = rt.remote(_PipelineStage).options(num_gpus=0.5, num_cpus=0)
+    split = cfg.n_layer // 2
+    return (stage.remote(cfg, seed, range(split), True, False, device),
+            stage.remote(cfg, seed, range(split, cfg.n_layer), False, True,
+                         device))
+
+
+def _gpt2_here(cfg, seed: int, tokens, device):
+    """The same model's logits from one ``gpt2_apply`` in this process."""
+    from ray_tpu_torch.models import gpt2_apply
+
+    params = model_family(cfg).init(torch.Generator(device).manual_seed(seed),
+                                    cfg, device=device)
+    with torch.no_grad():
+        out = gpt2_apply(params, tokens.to(device), cfg)
+    del params
+    return out
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _per_call_ms(call, n: int, warmup: int) -> dict:
+    """Wall ms of ``n`` sequential calls after ``warmup``: median, mean."""
+    for _ in range(warmup):
+        call()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"median": float(np.median(ms)), "mean": float(np.mean(ms)),
+            "min": min(ms), "max": max(ms)}
+
+
+def dag_pipeline(rt, cfg, f32_cfg, batch: int, seq: int, calls: int,
+                 warmup: int, device) -> dict:
+    """12a: ``InputNode`` -> stage A -> stage B compiled over two
+    half-card actors; the greedy ids against one ``gpt2_apply`` here and
+    against the same stages called through ``.remote()``; at f32 and two
+    layers the logits against the same at 1e-4; every forward's flash
+    launches counted in each stage; per-execute wall ms against the
+    ``.remote()`` chain at the residual's payload and at one element."""
+    from ray_tpu_torch.core.serialization import (
+        deserialize_from_bytes, serialize_to_bytes,
+    )
+    from ray_tpu_torch.dag import InputNode
+
+    rep = {}
+    vocab = cfg.vocab_size
+    # f32, two layers: the logits.
+    wait_card_free(rt)
+    tok32 = torch.from_numpy(np.array(_token_rows(1, DAG_F32_SEQ - 1, vocab,
+                                                  DAG_SEED + 1)))
+    a, b = _stages(rt, f32_cfg, DAG_SEED, device)
+    with InputNode() as inp:
+        dag = b.logits.bind(a.forward.bind(inp))
+    # One edge of 1 x 128 x 50304 f32 logits: 25.8 MB, past the default.
+    compiled = dag.experimental_compile(buffer_size_bytes=32 << 20)
+    try:
+        got = compiled.execute(tok32).get(timeout=600)
+    finally:
+        compiled.teardown()
+    want = _gpt2_here(f32_cfg, DAG_SEED, tok32, device).cpu()
+    rep["f32_max_abs_err"] = max_err(got, want)
+    if got.shape != want.shape or rep["f32_max_abs_err"] > TOL_F32:
+        raise AssertionError(f"12a f32 logits: {rep['f32_max_abs_err']}")
+    for stage in (a, b):
+        rt.kill(stage)
+
+    # bf16 at full depth: the ids.
+    rep["lease_wait_s"] = wait_card_free(rt)
+    tokens = torch.from_numpy(np.array(_token_rows(batch, seq - 1, vocab,
+                                                   DAG_SEED + 2)))
+    a, b = _stages(rt, cfg, DAG_SEED, device)
+    want = _gpt2_here(cfg, DAG_SEED, tokens, device).argmax(-1).cpu()
+    with InputNode() as inp:
+        dag = b.forward.bind(a.forward.bind(inp))
+    t0 = time.perf_counter()
+    compiled = dag.experimental_compile()
+    rep["compile_s"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        got = compiled.execute(tokens).get(timeout=600)
+        rep["first_execute_s"] = time.perf_counter() - t0
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"12a ids differ from gpt2_apply here at "
+                f"{int((got != want).sum())} of {want.numel()} positions")
+        rep["execute_ms"] = _per_call_ms(
+            lambda: compiled.execute(tokens).get(timeout=600), calls, warmup)
+    finally:
+        compiled.teardown()
+    executes = 1 + warmup + calls
+    got = rt.get(b.forward.remote(a.forward.remote(tokens)), timeout=600)
+    if not torch.equal(got, want):
+        raise AssertionError("12a: the .remote() chain's ids differ")
+    rep["remote_ms"] = _per_call_ms(
+        lambda: rt.get(b.forward.remote(a.forward.remote(tokens)),
+                       timeout=600), calls, warmup)
+    remote_calls = 1 + warmup + calls
+    counts = rt.get([s.counts.remote() for s in (a, b)], timeout=60)
+    per_stage = [cfg.n_layer // 2, cfg.n_layer - cfg.n_layer // 2]
+    rep["launches"] = [c["flash_fwd"] for c in counts]
+    rep["calls"] = [c["calls"] for c in counts]
+    for c, n_layers in zip(counts, per_stage):
+        if c["calls"] != executes + remote_calls or \
+                c["flash_fwd"] != n_layers * c["calls"]:
+            raise AssertionError(
+                f"12a launches {counts}: want {n_layers} a call over "
+                f"{executes} executes and {remote_calls} remote calls")
+    rep["launches_per_execute"] = per_stage
+
+    # One element on every edge: the DAG's own cost.
+    one = torch.zeros(1, dtype=torch.bfloat16)
+    with InputNode() as inp:
+        dag = b.echo.bind(a.echo.bind(inp))
+    compiled = dag.experimental_compile()
+    try:
+        rep["execute_ms_one_element"] = _per_call_ms(
+            lambda: compiled.execute(one).get(timeout=60), calls, warmup)
+    finally:
+        compiled.teardown()
+    rep["remote_ms_one_element"] = _per_call_ms(
+        lambda: rt.get(b.echo.remote(a.echo.remote(one)), timeout=60),
+        calls, warmup)
+    for stage in (a, b):
+        rt.kill(stage)
+    rep["lease_free_s"] = wait_card_free(rt)
+
+    # The edge's host copies, as the channel makes them: the residual to
+    # bytes on the host, then back onto the card.
+    g = torch.Generator(device).manual_seed(DAG_SEED + 3)
+    x = torch.randn((batch, seq, cfg.d_model), generator=g,
+                    device=device).to(torch.bfloat16)
+    to_host, to_card = [], []
+    for _ in range(10):
+        _sync(device)
+        t0 = time.perf_counter()
+        data = serialize_to_bytes(x)
+        t1 = time.perf_counter()
+        back = deserialize_from_bytes(data).to(device)
+        _sync(device)
+        to_host.append((t1 - t0) * 1e3)
+        to_card.append((time.perf_counter() - t1) * 1e3)
+    if not torch.equal(back, x):
+        raise AssertionError("the residual changed on its way through bytes")
+    rep["edge"] = {"bytes": x.numel() * x.element_size(),
+                   "to_host_ms": float(np.median(to_host)),
+                   "to_card_ms": float(np.median(to_card))}
+    rep["edge"]["host_copy_share"] = (
+        (rep["edge"]["to_host_ms"] + rep["edge"]["to_card_ms"])
+        / rep["execute_ms"]["median"])
+    return rep
+
+
+class _ReduceMember:
+    """An allreduce participant holding seeded tensors on its card, one
+    per (dtype, bytes)."""
+
+    def __init__(self, rank: int, device, sizes, seed: int):
+        self.device = device
+        self.tensors = {key: _member_tensor(rank, key, device, seed)
+                        for key in _reduce_keys(sizes)}
+
+    def part(self, key):
+        return self.tensors[tuple(key)]
+
+    def visible(self):
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+
+def _reduce_keys(sizes):
+    return [(dtype, size) for dtype in ("float32", "bfloat16")
+            for size in sizes]
+
+
+def _member_tensor(rank: int, key, device, seed: int):
+    dtype, size = key
+    elem = 4 if dtype == "float32" else 2
+    g = torch.Generator(device).manual_seed(seed + rank)
+    return torch.randn(size // elem, generator=g, device=device).to(
+        getattr(torch, dtype))
+
+
+def dag_allreduce(rt, sizes, calls: int, device) -> dict:
+    """12a's in-graph allreduce over two half-card actors: by the host path
+    (``apply_collective`` on the card) and through a gloo ``DistGroup`` of
+    the two; the sum in participant order, exact at f32 and within 2e-2 at
+    bf16; GB/s = bytes a rank over the execute's wall time."""
+    from ray_tpu_torch.collective import (
+        create_collective_group, destroy_actor_collective_group,
+    )
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode, allreduce_bind
+
+    seed = SEED + 95
+    wait_card_free(rt)
+    member = rt.remote(_ReduceMember).options(num_gpus=0.5, num_cpus=0)
+    members = [member.remote(r, device, sizes, seed) for r in range(2)]
+    visible = rt.get([m.visible.remote() for m in members], timeout=120)
+    group = "dag_gloo"
+    create_collective_group(members, backend="gloo", group_name=group)
+    want = {key: (_member_tensor(0, key, device, seed)
+                  + _member_tensor(1, key, device, seed)).cpu()
+            for key in _reduce_keys(sizes)}
+    rep = {"visible": visible}
+    for path, group_name in (("host", None), ("gloo", group)):
+        with InputNode() as inp:
+            parts = [m.part.bind(inp) for m in members]
+            dag = MultiOutputNode(allreduce_bind(parts, "sum",
+                                                 group_name=group_name))
+        # Every edge carries one tensor of the largest size and a header.
+        compiled = dag.experimental_compile(
+            buffer_size_bytes=max(sizes) + (1 << 20))
+        try:
+            for key in _reduce_keys(sizes):
+                outs = compiled.execute(key).get(timeout=600)
+                tol = 0.0 if key[0] == "float32" else TOL
+                errs = [max_err(o, want[key]) for o in outs]
+                if any(o.dtype != want[key].dtype or o.shape != want[key].shape
+                       for o in outs) or max(errs) > tol:
+                    raise AssertionError(f"12a allreduce {path} {key}: "
+                                         f"errors {errs}")
+                ms = _per_call_ms(
+                    lambda: compiled.execute(key).get(timeout=600), calls, 1)
+                rep[f"{path} {key[0]} {key[1]}"] = {
+                    "max_abs_err": max(errs), "ms": ms["median"],
+                    "gb_per_s": key[1] / ms["median"] / 1e6}
+        finally:
+            compiled.teardown()
+    destroy_actor_collective_group(group)
+    for m in members:
+        rt.kill(m)
+    wait_card_free(rt)
+    return rep
+
+
+def _trial_fit(config):
+    """One ``TorchTrainer`` fit of ``_train_loop`` for 12b: one worker
+    leasing half the card, ``config["lr"]`` for AdamW.  A Tune trial and
+    the direct fit in this process run this same function."""
+    import ray_tpu_torch.data as rd
+    import ray_tpu_torch.train as rtrain
+
+    cfg = GPT2Config(**config["cfg"])
+    loop = {"cfg": config["cfg"], "seed": config["seed"],
+            "optimizer": "adamw", "lr": config["lr"],
+            "batch": config["batch"], "warmup": 1, "steps": config["steps"],
+            # no checkpoint: ``(step + 1) % ckpt_every`` never reaches 0
+            "ckpt_every": config["steps"] + 1, "device": config["device"]}
+    rows = _token_rows(config["batch"], config["seq"], cfg.vocab_size,
+                       config["seed"] + 1)
+    t0 = time.time()
+    result = rtrain.TorchTrainer(
+        _train_loop, train_loop_config=loop,
+        scaling_config=rtrain.ScalingConfig(
+            num_workers=1, use_gpu=True, gpus_per_worker=0.5),
+        run_config=rtrain.RunConfig(
+            name="phase12", storage_path=tempfile.mkdtemp(
+                prefix="chip_smoke_tune_")),
+        datasets={"train": rd.from_items(rows, parallelism=1)},
+    ).fit()
+    if result.error is not None:
+        raise AssertionError(f"12b fit failed: {result.error!r}")
+    result.span = (t0, time.time())
+    return result
+
+
+def _tune_trainable(config):
+    """12b's trainable: a ``TorchTrainer`` fit whose worker's per-step
+    losses and launches this trial reports to Tune, the last report with
+    the fit's timed step and lease."""
+    import ray_tpu_torch.train as train
+
+    result = _trial_fit(config)
+    steps = _steps(result)
+    for s in sorted(steps):
+        metrics = {"loss": steps[s]["loss"], "step": s,
+                   "launches": steps[s]["launches"]}
+        if s == max(steps):
+            metrics.update(span=result.span,
+                           timed_step_ms=result.metrics["timed_step_ms"],
+                           visible=result.metrics["visible"],
+                           backend=result.metrics["torch_backend"])
+        train.report(metrics)
+
+
+def tune_trials(rt, cfg, batch: int, seq: int, steps: int, device) -> dict:
+    """12b: a ``Tuner`` over AdamW's lr, two trials at once, each a
+    ``TorchTrainer`` on half the card.  Each trial's losses must equal a
+    direct fit's of its config at 1e-5 relative, 24/12/12 launches a step
+    (remat), the best trial the one with the lower last loss, and the
+    leases back after."""
+    from ray_tpu_torch import tune
+
+    wait_card_free(rt)
+    base = {"cfg": dataclasses.asdict(cfg), "seed": TUNE_SEED,
+            "batch": batch, "seq": seq, "steps": steps, "device": device}
+    tuner = tune.Tuner(
+        _tune_trainable,
+        param_space={"lr": tune.grid_search(list(TUNE_LRS)), **base},
+        tune_config=tune.TuneConfig(max_concurrent_trials=2, metric="loss",
+                                    mode="min"))
+    t0 = time.perf_counter()
+    grid = tuner.fit()
+    fit_s = time.perf_counter() - t0
+    lease_s = wait_card_free(rt)
+    n = cfg.n_layer
+    want_launches = [n * (2 if cfg.remat else 1), n, n]
+    trials, problems = {}, []
+    for r in grid.results:
+        if r.error is not None:
+            raise AssertionError(f"12b trial {r.trial_id}: {r.error}")
+        hist = [m for m in r.metrics_history if "step" in m]
+        last = r.metrics
+        trials[r.config["lr"]] = {
+            "trial_id": r.trial_id,
+            "losses": [m["loss"] for m in hist],
+            "launches": [sum(m["launches"][i] for m in hist)
+                         for i in range(3)],
+            "step_ms": last["timed_step_ms"],
+            "tokens_per_s": batch * seq / last["timed_step_ms"] * 1e3,
+            "span": last["span"], "visible": last["visible"],
+            "backend": last["backend"]}
+        if [m["step"] for m in hist] != list(range(steps)):
+            problems.append(f"{r.trial_id} reported steps "
+                            f"{[m['step'] for m in hist]}")
+        problems += [f"{r.trial_id} step {m['step']}: launches "
+                     f"{m['launches']}" for m in hist
+                     if m["launches"] != want_launches]
+    if sorted(trials) != sorted(TUNE_LRS):
+        raise AssertionError(f"12b trials {sorted(trials)}")
+    spans = [t["span"] for t in trials.values()]
+    overlap = min(e for _, e in spans) - max(s for s, _ in spans)
+    if overlap <= 0:
+        problems.append(f"the trials did not run at once: {spans}")
+    best = grid.get_best_result()
+    lower = min(trials, key=lambda lr: trials[lr]["losses"][-1])
+    if best.config["lr"] != lower:
+        problems.append(f"best trial lr {best.config['lr']}, lower last "
+                        f"loss at {lower}")
+    # The direct fits, two at once from this process's threads, as the
+    # trials ran.
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(TUNE_LRS)) as pool:
+        direct_fits = dict(zip(TUNE_LRS, pool.map(
+            lambda lr: _trial_fit({**base, "lr": lr}), TUNE_LRS)))
+    direct_s = time.perf_counter() - t0
+    wait_card_free(rt)
+    for lr, t in trials.items():
+        if t["visible"] != "0" or t["backend"] != "gloo":
+            problems.append(f"lr {lr}: lease/backend {t}")
+        direct = _steps(direct_fits[lr])
+        t["direct_losses"] = [direct[s]["loss"] for s in sorted(direct)]
+        t["max_rel_err_vs_direct"] = max(
+            abs(x - y) / abs(y)
+            for x, y in zip(t["losses"], t["direct_losses"]))
+        if len(t["direct_losses"]) != steps or \
+                t["max_rel_err_vs_direct"] > 1e-5:
+            problems.append(f"lr {lr}: losses {t['losses']} against a "
+                            f"direct fit's {t['direct_losses']}")
+    if problems:
+        raise AssertionError(f"12b: {problems}")
+    return {"trials": {str(lr): t for lr, t in trials.items()},
+            "best_lr": best.config["lr"], "fit_s": fit_s,
+            "direct_fits_s": direct_s,
+            "overlap_s": overlap, "lease_free_s": lease_s,
+            "launches_per_step": want_launches}
+
+
+def _job_generate(model_cfg, prompts, max_tokens: int, device):
+    """12c's task: phase 8's serving engine, in a task leasing the card."""
+    return _EngineActor(model_cfg, len(prompts), model_cfg.max_seq, SEED,
+                        device).generate(prompts, max_tokens)
+
+
+def job_main(device: str, cfg_json: str, max_tokens: int) -> int:
+    """12c's job entrypoint: joins the running cluster, runs
+    ``_job_generate`` in one ``num_gpus=1`` task and prints its result on
+    a ``job_result`` line."""
+    import ray_tpu_torch as rt
+
+    rt.init(address="auto")
+    try:
+        task = rt.remote(_job_generate).options(num_gpus=1)
+        out = rt.get(task.remote(GPT2Config(**json.loads(cfg_json)),
+                                 make_prompts(*JOB_PROMPTS), max_tokens,
+                                 device), timeout=600)
+    finally:
+        rt.shutdown()
+    out["entrypoint_visible"] = os.environ.get("CUDA_VISIBLE_DEVICES")
+    print("job_result " + json.dumps(out), flush=True)
+    return 0
+
+
+def _cli(*args, timeout: float = 900.0) -> str:
+    """``python -m ray_tpu_torch <args>`` from this checkout; its stdout.
+    Fails unless it exits 0."""
+    # A process that joins the cluster starts a node agent of its own,
+    # which registers this host's cards again (as the JAX package's does
+    # its TPU chips; ROADMAP C): the CLI joins seeing no card.
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=HERE, env={**os.environ,
+                                         "CUDA_VISIBLE_DEVICES": ""})
+    if proc.returncode != 0:
+        raise AssertionError(f"ray-tpu-torch {' '.join(args[:3])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _gpus(nodes):
+    """The GPU totals of the live nodes that hold any."""
+    return [n["total"]["GPU"] for n in nodes
+            if n["alive"] and n["total"].get("GPU")]
+
+
+def _get_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def job_and_cli(rt, model_cfg, max_tokens: int, device) -> dict:
+    """12c: ``ray-tpu-torch job submit`` of ``job_main``, whose task
+    serves GPT-2 on the card; its logs' ids against the same engine here;
+    ``status`` and ``list nodes`` name the GPU; a dashboard started here
+    answers with it."""
+    from ray_tpu_torch.dashboard import start_dashboard, stop_dashboard
+
+    wait_card_free(rt)
+    sid = f"chip-smoke-{os.getpid()}"
+    code = (f"import sys, chip_smoke; sys.exit(chip_smoke.job_main("
+            f"{device!r}, {json.dumps(dataclasses.asdict(model_cfg))!r}, "
+            f"{max_tokens}))")
+    t0 = time.perf_counter()
+    submitted = _cli("job", "submit", "--submission-id", sid, "--timeout",
+                     "600", "--", sys.executable, "-c", code)
+    submit_s = time.perf_counter() - t0
+    if f"job {sid}: SUCCEEDED" not in submitted:
+        raise AssertionError(f"12c job: {submitted[-4000:]}")
+    info = json.loads(_cli("job", "status", sid))
+    logs = _cli("job", "logs", sid)
+    lines = [l for l in logs.splitlines() if l.startswith("job_result ")]
+    if info["status"] != "SUCCEEDED" or len(lines) != 1:
+        raise AssertionError(f"12c job status {info}, logs {logs[-4000:]}")
+    out = json.loads(lines[0][len("job_result "):])
+    local = TorchLLMEngine(EngineConfig(
+        model=model_cfg, max_batch_size=JOB_PROMPTS[0],
+        max_seq_len=model_cfg.max_seq, seed=SEED), device=device)
+    want = _greedy_tokens(local, make_prompts(*JOB_PROMPTS), max_tokens)
+    del local
+    if out["tokens"] != want:
+        raise AssertionError(f"12c: the job's ids {out['tokens']} differ "
+                             f"from this process's {want}")
+    if min(out["launches"].values()) <= 0 or out["visible"] != "0" or \
+            out["entrypoint_visible"] != "":
+        raise AssertionError(f"12c job task: {out}")
+    wait_card_free(rt)
+    status = _cli("status")
+    nodes = json.loads(_cli("list", "nodes", "--format", "json"))
+    if "1/1 GPU" not in status or _gpus(nodes) != [1.0]:
+        raise AssertionError(f"12c status:\n{status}\nnodes {nodes}")
+    url = start_dashboard(port=_free_port())
+    try:
+        cluster = _get_json(url + "/api/cluster")
+        dash_nodes = _get_json(url + "/api/nodes")
+        jobs = _get_json(url + "/api/jobs")
+    finally:
+        stop_dashboard()
+    if cluster["resources_total"].get("GPU") != 1.0 or \
+            _gpus(dash_nodes) != [1.0] or \
+            [j.get("status") for j in jobs
+             if j.get("submission_id") == sid] != ["SUCCEEDED"]:
+        raise AssertionError(f"12c dashboard: {cluster}, {dash_nodes}, "
+                             f"{jobs}")
+    return {"submit_to_succeeded_s": submit_s,
+            "job_run_s": info["end_time"] - info["start_time"],
+            "launches": out["launches"], "visible": out["visible"],
+            "tokens": [len(t) for t in want],
+            "status_gpu_line": [l.strip() for l in status.splitlines()
+                                if l.strip().endswith(" GPU")],
+            "dashboard_gpu": cluster["resources_total"]["GPU"]}
+
+
+def dag_tune_phase(device="cuda", cfg=None, f32_cfg=None, dag_shape=None,
+                   reduce_sizes=DAG_ALLREDUCE_SIZES, tune_shape=None,
+                   job_cfg=None, job_tokens=JOB_TOKENS,
+                   init_kwargs=None) -> dict:
+    """Phase 12: compiled DAGs, Tune, a job, the CLI and the dashboard on
+    the card, under a fresh ``ray_tpu_torch.init(num_cpus=8)`` (two trial
+    actors, their two train workers and two dataset coordinators need six
+    CPU slots at once).  Every process it starts is stopped before it
+    returns."""
+    import ray_tpu_torch as rt
+
+    cfg = cfg or GPT2Config.small(dtype="bfloat16", attention="flash")
+    f32_cfg = f32_cfg or dataclasses.replace(
+        GPT2Config.small(dtype="float32", attention="flash"), n_layer=2)
+    batch, seq = dag_shape or (DAG_BATCH, DAG_SEQ)
+    tune_batch, tune_seq, tune_steps = tune_shape or (TUNE_BATCH, cfg.max_seq,
+                                                      TUNE_STEPS)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    rep = {}
+    rt.init(num_cpus=8, **(init_kwargs or {}))
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"detected {rt.cluster_resources()}")
+        t0 = time.perf_counter()
+        rep["dag"] = dag_pipeline(rt, cfg, f32_cfg, batch, seq, DAG_CALLS,
+                                  DAG_WARMUP, device)
+        rep["allreduce"] = dag_allreduce(rt, reduce_sizes,
+                                         DAG_ALLREDUCE_CALLS, device)
+        rep["dag_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["tune"] = tune_trials(rt, dataclasses.replace(cfg, remat=True),
+                                  tune_batch, tune_seq, tune_steps, device)
+        rep["tune_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["job"] = job_and_cli(rt, job_cfg or GPT2Config.small(),
+                                 job_tokens, device)
+        rep["job_s"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    return rep
+
+
+def report_dag_tune_phase(card: str, dp: dict, tp: dict) -> None:
+    """Phase 12's readings: one line of numbers, then the report as JSON."""
+    d, t, j = dp["dag"], dp["tune"], dp["job"]
+    ar = {k: round(v["gb_per_s"], 3) for k, v in dp["allreduce"].items()
+          if isinstance(v, dict) and "gb_per_s" in v}
+    print(f"dag/tune/job on {card}: 12a execute "
+          f"{d['execute_ms']['median']:.3f} ms median against "
+          f"{d['remote_ms']['median']:.3f} through .remote() at "
+          f"{d['edge']['bytes']} B an edge, "
+          f"{d['execute_ms_one_element']['median']:.3f} against "
+          f"{d['remote_ms_one_element']['median']:.3f} at one element; "
+          f"host copies {d['edge']['host_copy_share']:.3f} of an execute; "
+          f"allreduce GB/s {ar}; 12b trial step ms "
+          f"{ {lr: round(x['step_ms'], 2) for lr, x in t['trials'].items()} }"
+          f" (11b, one worker on the card at B=32: "
+          f"{tp['trainer']['step_ms']:.2f}), Tuner.fit {t['fit_s']:.1f} s; "
+          f"12c submit to SUCCEEDED {j['submit_to_succeeded_s']:.1f} s; "
+          f"phase {dp['dag_s'] + dp['tune_s'] + dp['job_s']:.1f} s",
+          flush=True)
+    print("dag_tune_job " + json.dumps(dp), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3463,6 +4115,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain f32 stays f32
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def lap(phase: int):
+        now = time.perf_counter()
+        phase_s[phase] = round(now - last[0], 1)
+        last[0] = now
+
     card = card_line()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3485,6 +4144,7 @@ def main() -> int:
     sass = {name: check_sass(name) for name in TENSOR_CORE_KERNELS}
     print(f"sass {json.dumps(sass)}", flush=True)
 
+    lap(1)
     # Phase 2: each kernel against its plain version.
     # Cache lengths: 2048 and 1024 are the engines' max_seq_len; 1000 is no
     # multiple of the kernel's 64-row tile.
@@ -3552,6 +4212,7 @@ def main() -> int:
                                   "flash_d128": flash_d128,
                                   "flash_bwd": bwd_runs}), flush=True)
 
+    lap(2)
     # Phase 3: serving at full width.
     llama = serve(LlamaConfig.tinyllama_1b(), 8, 2048,
                   make_prompts(12, 100, 1500, SEED), 64, stagger=4,
@@ -3562,6 +4223,7 @@ def main() -> int:
                  make_prompts(12, 100, 800, SEED + 1), 64, stagger=4)
     print("serve gpt2_small " + json.dumps(gpt2), flush=True)
 
+    lap(3)
     # Phase 4: path parity, kernels vs plain versions, both families.
     # In f32 the logits of the two runs are held at 1e-4.  In bf16 each
     # launch is held at 2e-2 on its own inputs, and the logits are only
@@ -3589,12 +4251,14 @@ def main() -> int:
               f"{f' (tolerance {tol})' if f32_run else ''}, largest logit "
               f"{max(b.abs().max().item() for b in plain)}", flush=True)
 
+    lap(4)
     # Phase 5: training at full width (this slice's path).
     train_rep = train(GPT2Config.small(dtype="bfloat16", attention="flash",
                                        remat=True), 32, 1024, 3, 10)
     print("train gpt2_small " + json.dumps(train_rep), flush=True)
     train_launches = train_rep["launches"]
 
+    lap(5)
     # Phase 6: training parity, kernels vs plain versions, both families.
     for dtype in ("float32", "bfloat16"):
         for cfg, batch, seq in (
@@ -3610,6 +4274,7 @@ def main() -> int:
             print(f"{what} (2 layers, B={batch} x S={seq}): {held}; "
                   + json.dumps(rep), flush=True)
 
+    lap(6)
     # Phase 7: continuous batching at full width, then f32 token parity.
     cb = cb_serve(make_prompts(16, 100, 1500, SEED + 12), 64, 0.05, 4)
     prof = cb["profile"]
@@ -3629,6 +4294,7 @@ def main() -> int:
         print(f"cb parity {type(cfg).__name__} float32 (2 layers): every "
               f"result equals its solo run; " + json.dumps(rep), flush=True)
 
+    lap(7)
     # Phase 8: the runtime on the card, the serving path in a leased actor.
     rt_rep = runtime_phase("cuda", GPT2Config.small(),
                            make_prompts(4, 50, 400, SEED + 30), 32)
@@ -3644,6 +4310,7 @@ def main() -> int:
     print("runtime " + json.dumps(rt_rep), flush=True)
     actor_launches = rt_rep["actor_engine"]["launches"]
 
+    lap(8)
     # Phase 9: the Serve layer and the OpenAI apps, each engine in its own
     # GPU-leased process.
     sv = serve_phase(cb["solo_tokens"], 64, 4)
@@ -3669,12 +4336,14 @@ def main() -> int:
           f"{ {b: p['mean_step_ms'] for b, p in steps.items()} }",
           flush=True)
 
+    lap(9)
     # Phase 10: the Data layer and batch inference, each engine in a
     # GPU-leased data actor.
     dp = data_phase()
     report_data_phase(card, dp)
     c1, c2 = dp["counted"]["n=1"], dp["counted"]["n=2"]
 
+    lap(10)
     # Phase 11: the collective layer and Train, the training step in a
     # TorchTrainer worker that leases the card.
     tp = train_phase(GPT2Config.small(dtype="bfloat16", attention="flash",
@@ -3683,6 +4352,19 @@ def main() -> int:
     worker_launches = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
                                tp["trainer"]["launches"]))
     dp_ranks = tp["data_parallel"]["launches_by_rank"]
+
+    lap(11)
+    # Phase 12: compiled DAGs, Tune, a job, the CLI and the dashboard, each
+    # kernel launched from a DAG stage, a trial's train worker or a job's
+    # task.
+    gp = dag_tune_phase()
+    report_dag_tune_phase(card, gp, tp)
+    dag_launches = gp["dag"]["launches"]
+    tune_launches = {lr: dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                                  t["launches"]))
+                     for lr, t in gp["tune"]["trials"].items()}
+    job_launches = gp["job"]["launches"]
+    lap(12)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
@@ -3708,6 +4390,8 @@ def main() -> int:
          # Phase 10: eager steps in 10b's data actors, one and two.
          "launches_data_n1": c1["launches"]["decode_attention"],
          "launches_data_n2": c2["launches"]["decode_attention"],
+         # Phase 12: in 12c's job task.
+         "launches_job": job_launches["decode_attention"],
          "max_abs_err": dec["self"]["max_abs_err"],
          "ms": dec["self"]["ms"], "event_ms": dec["self"]["event_ms"],
          "plain_ms": dec["self"]["plain_ms"],
@@ -3733,6 +4417,12 @@ def main() -> int:
          # Phase 10: the prompts 10b's data actors prefilled.
          "launches_data_n1": c1["launches"]["flash_fwd"],
          "launches_data_n2": c2["launches"]["flash_fwd"],
+         # Phase 12: in 12a's two DAG stages, 12b's trial workers (by
+         # learning rate) and 12c's job task.
+         "launches_dag": dag_launches,
+         "launches_tune": {lr: t["flash_fwd"]
+                           for lr, t in tune_launches.items()},
+         "launches_job": job_launches["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
@@ -3756,6 +4446,7 @@ def main() -> int:
             "launches": train_launches[name],
             "launches_train_worker": worker_launches[name],
             "launches_dp_ranks": [int(r[i]) for r in dp_ranks],
+            "launches_tune": {lr: t[name] for lr, t in tune_launches.items()},
             "max_abs_err": max(errs),
             "ms": rec["ms"], "event_ms": rec["event_ms"],
             "plain_ms": rec["plain_ms"],
@@ -3763,6 +4454,7 @@ def main() -> int:
             "library_ms": bwd_train["library_ms"],
             "library": f"one SDPA backward (dq, dk, dv): "
                        f"{bwd_train['library_backend']}"})
+    print(f"seconds by phase {json.dumps(phase_s)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

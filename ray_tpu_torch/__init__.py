@@ -64,6 +64,17 @@ _LAZY = {
 
 
 def __getattr__(name):
+    # `ray_tpu_torch.dag` loads lazily (PEP 562): it pulls numpy at import
+    # time, which costs ~0.2s of every WORKER cold start on a 1-core
+    # host (any `ray_tpu_torch.core.*` import runs this package __init__).
+    # `ray_tpu_torch.api` too: the JAX package imports it eagerly, so code
+    # reaches it as an attribute (the job supervisor, in a fresh worker).
+    if name in ("api", "dag"):
+        import importlib
+
+        module = importlib.import_module("." + name, __name__)
+        globals()[name] = module
+        return module
     if name in _LAZY:
         import importlib
 
@@ -74,4 +85,4 @@ def __getattr__(name):
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_LAZY))
+    return sorted(set(globals()) | set(_LAZY) | {"api", "dag"})

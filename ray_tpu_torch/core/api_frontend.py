@@ -150,9 +150,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazily bind this function into a DAG node (ray DAG .bind analog)."""
-        raise NotImplementedError(
-            "DAGs (ray_tpu_torch.dag) are not ported yet: ROADMAP A1d"
-        )
+        from ..dag.nodes import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -185,9 +185,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Lazily bind this method into a DAG node (ray DAG .bind analog)."""
-        raise NotImplementedError(
-            "DAGs (ray_tpu_torch.dag) are not ported yet: ROADMAP A1d"
-        )
+        from ..dag.nodes import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
 
 def execute_on_actor(handle: "ActorHandle", fn, *args, **kwargs):

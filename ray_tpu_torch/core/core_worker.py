@@ -4055,10 +4055,11 @@ class CoreWorker:
                 # analog): a long-lived task that reads/writes shm channels
                 # instead of per-call RPC.  Dispatched to the dag module with
                 # the actor instance bound.
-                raise NotImplementedError(
-                    "compiled DAGs (ray_tpu_torch.dag) are not ported yet: "
-                    "ROADMAP A1d"
-                )
+                import functools
+
+                from ..dag.worker_loop import dag_exec_loop
+
+                method = functools.partial(dag_exec_loop, self.actor_instance)
             elif method_name == "__rtpu_exec__":
                 # Generic in-actor execution (ray's ``__ray_call__`` analog):
                 # first arg is a pickled callable invoked with the actor

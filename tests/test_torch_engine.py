@@ -153,21 +153,27 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 
 
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
-    """Every module of the port (the Serve layer and the OpenAI apps
+    """Every module of the port (the Serve layer and the OpenAI apps, the
+    DAGs, Tune, jobs, the CLI, the dashboard and RLlib's algorithm base
     among them), and chip_smoke.py, import without JAX or any module of
     the JAX package (checked in a fresh interpreter)."""
     code = """
 import importlib, pkgutil, sys
 sys.path.insert(0, {repo!r})
 import ray_tpu_torch
+# ``__main__`` runs the CLI when imported; ``scripts.cli`` is its code.
 names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
-                                               "ray_tpu_torch.")]
+                                               "ray_tpu_torch.")
+         if m.name != "ray_tpu_torch.__main__"]
 for name in names:
     importlib.import_module(name)
 serving = {{"ray_tpu_torch.serve", "ray_tpu_torch.serve.api",
            "ray_tpu_torch.serve.controller", "ray_tpu_torch.serve.handle",
            "ray_tpu_torch.serve.grpc_ingress", "ray_tpu_torch.llm.serve_app",
-           "ray_tpu_torch.llm.disagg"}}
+           "ray_tpu_torch.llm.disagg", "ray_tpu_torch.dag.worker_loop",
+           "ray_tpu_torch.tune.tuner", "ray_tpu_torch.job.sdk",
+           "ray_tpu_torch.scripts.cli", "ray_tpu_torch.dashboard",
+           "ray_tpu_torch.rllib.algorithm"}}
 assert serving <= set(names), sorted(serving - set(names))
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -533,9 +533,11 @@ def test_init_keeps_its_files_under_tmpdir(tmp_path):
 
 
 def test_unported_layers_say_which_roadmap_item(port):
+    # `.bind()` no longer waits for A1d: it builds the DAG node.
     fn = _visible_devices_task(port)
-    with pytest.raises(NotImplementedError, match="A1d"):
-        fn.bind("", 1)
+    node = fn.bind("", 1)
+    assert isinstance(node, port.dag.FunctionNode)
+    assert node._bound_args == ("", 1)
     # The collective re-probe no longer waits for A4: it arms the tuner.
     from ray_tpu_torch.util import remediation
 

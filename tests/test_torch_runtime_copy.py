@@ -9,7 +9,8 @@ change on either side (a fix made in the JAX twin and not carried over, an
 edit to the port) changes the diff and fails until the new diff is
 reviewed and its digest, which the failure prints, is written down.  A
 listed file that no longer differs fails too, so the list stays exact; a
-module of ``ray_tpu/{collective,core,data,serve,train,util}`` with no twin
+module of ``ray_tpu/{collective,core,dag,data,job,scripts,serve,train,
+tune,util}`` with no twin
 must be listed in ``WAITING`` with the ROADMAP item it waits for, or in
 ``COUNTERPARTS`` beside the port module that takes its place under another
 name, and a port module with no twin in ``PORT_ONLY``.
@@ -27,16 +28,18 @@ JAX_PKG = os.path.join(REPO, "ray_tpu")
 PORT_PKG = os.path.join(REPO, "ray_tpu_torch")
 
 # The runtime's files, relative to each package root.
-RUNTIME_DIRS = ("collective", "core", "data", "serve", "train", "util",
-                "util/state")
-RUNTIME_FILES = ("__init__.py", "_version.py", "api.py",
-                 "collective/device_objects.py", "collective/p2p.py")
+RUNTIME_DIRS = ("collective", "core", "dag", "data", "job", "scripts",
+                "serve", "train", "tune", "util", "util/state")
+RUNTIME_FILES = ("__init__.py", "__main__.py", "_version.py", "api.py",
+                 "collective/device_objects.py", "collective/p2p.py",
+                 "dashboard.py", "dashboard_ui.py")
 
 # rel: (why it differs, digest of its pinned diff)
 DIVERGES = {
     "__init__.py": ("the port's package docstring; its public names, "
-                    "`resolve_device` (torch) among them, resolve lazily, "
-                    "and it has no `dag` yet", "bb3a882fcce3f148"),
+                    "`resolve_device` (torch) among them, and the `api` "
+                    "module resolve lazily beside the lazy `dag`",
+                    "44e1f43380665e53"),
     "collective/__init__.py": ("exports LocalGroup and DistGroup, the "
                                "groups' classes, and RemoteDeviceObjectError",
                                "64c469fc67764e8e"),
@@ -71,13 +74,10 @@ DIVERGES = {
                             "fe5cdb67fe8c8233"),
     "core/accelerators.py": ("registers GPUAcceleratorManager",
                              "287f24ea863394d3"),
-    "core/api_frontend.py": ("`.bind()` raises: dag waits for A1d",
-                             "dda678c0e2a00cfc"),
     "core/core_worker.py": ("device-object wrap/unwrap over torch's pytree "
                             "and CUDA tensors; tensors are not cached as "
-                            "given on put; the dag exec loop waits for A1d; "
-                            "profiles go under the temp dir, not /tmp",
-                            "cf59d76025a00257"),
+                            "given on put; profiles go under the temp dir, "
+                            "not /tmp", "ff8d15eea3a6fff1"),
     "core/node.py": ("head info under the temp dir, not /tmp, so checkouts "
                      "with their own TMPDIR never share a head",
                      "c95c58f74848fc87"),
@@ -86,6 +86,19 @@ DIVERGES = {
                            "d1bc0a920219a264"),
     "core/runtime_env.py": ("default log dir and env cache under the temp "
                             "dir, not /tmp", "72776c185afcefc9"),
+    "dag/collective_ops.py": ("the host path reduces torch tensors in "
+                              "participant order on the card where one of "
+                              "them is; numpy keeps numpy's path",
+                              "6af13004eeb08010"),
+    "dag/worker_loop.py": ("the group path takes LocalGroup's per-rank "
+                           "list or a DistGroup rank's own tensor, and "
+                           "returns the group's tensor",
+                           "ae07afe435c228d1"),
+    "job/sdk.py": ("job logs under the temp dir, not /tmp; the docstring "
+                   "says the entrypoint sees no card",
+                   "49164317b4a263a6"),
+    "scripts/cli.py": ("the program is ray-tpu-torch; --resources' example "
+                       "names GPU", "03f24f4149145d33"),
     "data/execution.py": ("`num_gpus` lease in place of `num_tpus`",
                           "2923c0f2ba820550"),
     "data/streaming.py": ("`num_gpus` lease in place of `num_tpus`",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive ray_tpu_torch's serving and training paths, its runtime, its Data
-layer, its collective layer and Train, its DAGs, Tune and jobs on one
-NVIDIA GPU and check them.
+layer, its collective layer and Train, its DAGs, Tune and jobs, its
+pipeline-parallel trainer and its autoscaler on one NVIDIA GPU and check
+them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -151,6 +152,25 @@ Phases (none is caught: any failure exits non-zero):
      ids in ``job logs`` equal the same engine's here, flash and decode
      launches in the task, ``status`` and ``list nodes`` name the GPU, and
      a dashboard started here answers with it.
+ 13. the pipeline-parallel trainer and the autoscaler: (a) under a fresh
+     ``ray_tpu_torch.init(num_cpus=4)``, GPT-2 small (bf16, flash) cut by
+     ``gpt2_stage_modules`` into two 6-layer stages, each an actor leasing
+     half the card, trained 5 steps of non-interleaved 1F1B by
+     ``PipelinedTrainer.fit`` on seeded B=8 x S=1024 batches in 4
+     microbatches: every step's loss within 2e-3 of ``reference_run`` of
+     the same chunks here on the card, the first within 2e-2 of the plain
+     path's (dense attention), 240/120/120 flash forward/dQ/dK-dV launches
+     in each stage process (6 layers x 4 microbatches x forward and
+     recompute x 5 steps), at most 2 inputs held on stage 0; the step time
+     (median and min of steps 2-5), tokens/s, the bubble against
+     ``theoretical_bubble_fraction(2, 4)``, each edge's host copies and
+     each stage's peak memory; (b) under another ``init`` whose head
+     registers no card, an ``Autoscaler`` over ``FakeMultiNodeProvider``
+     with one node type ``{"CPU": 2, "GPU": 1}`` (min 0, max 1) launches
+     a node for a ``num_gpus=1`` task, which runs the flash forward and
+     decode there against their plain versions; the cluster's GPU total is
+     1 while the node is up and 0 after it is drained away; the seconds to
+     launch, to the result and to scale down.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -228,6 +248,7 @@ from ray_tpu_torch.ops.decode_attention import (  # noqa: E402
     reference_decode_attention,
     reference_decode_attention_split,
 )
+from ray_tpu_torch.train import pipeline as train_pipeline  # noqa: E402
 
 TOL = 2e-2  # bf16 tolerance of tests/test_llama_kernels.py:199-200
 # f32: the kernels and the plain versions differ only in summation order.
@@ -4108,6 +4129,389 @@ def report_dag_tune_phase(card: str, dp: dict, tp: dict) -> None:
     print("dag_tune_job " + json.dumps(dp), flush=True)
 
 
+# ----------------------------------------------------------------- phase 13
+PIPE_SEED = SEED + 130
+# 13a: GPT-2 small in two stages, 1F1B, B=8 x S=1024 in 4 microbatches.
+PIPE_BATCH, PIPE_MICRO, PIPE_STEPS = 8, 4, 5
+PIPE_LR = 3e-4
+# Against the sequential run of the same chunks on the card: the same
+# kernels in the same order, so a larger gap is a fault.
+PIPE_TOL = 2e-3
+# The first step against the plain path (dense attention), in bf16.
+PIPE_PLAIN_TOL = 2e-2
+# 13b: the autoscaled GPU node.
+AUTOSCALE_SEED = SEED + 140
+AUTOSCALE_IDLE_S = 5.0
+
+
+def _pipe_data(vocab: int, batch: int, seq: int, seed: int):
+    """Seeded next-token batches, new tokens each step."""
+    def data(step):
+        rng = np.random.default_rng(seed + step)
+        toks = rng.integers(0, vocab, (batch, seq + 1)).astype(np.int32)
+        return toks[:, :-1], toks[:, 1:]
+
+    return data
+
+
+class _CountedPipelineStage(train_pipeline.PipelineStage._cls):
+    """The shipped stage, which also reports its own process's kernel
+    launches (counters zeroed when the actor starts), its lease, its peak
+    memory on the card, and the host copy of every tensor it sends."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        reset_counters()
+        self._d2h_ms = []
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+
+    def _to_host(self, tree):
+        t0 = time.perf_counter()
+        out = super()._to_host(tree)
+        self._d2h_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def report(self, edge_shape) -> dict:
+        """Counters and memory, then the two host copies of one edge tensor
+        (``edge_shape``, bf16) timed alone on this stage's device."""
+        device = next(iter(self.chunks.values())).device
+        cuda = device.type == "cuda"
+        rep = {"pid": os.getpid(), "device": str(device),
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "launches": flash_counts(), "d2h_ms": list(self._d2h_ms),
+               "peak_mb": (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                           if cuda else None)}
+        x = torch.randn(edge_shape, device=device).to(torch.bfloat16)
+        rep["edge_copy"] = _host_copies_ms(x)
+        rep["edge_bytes"] = x.numel() * x.element_size()
+        return rep
+
+
+class _CountedPipelinedTrainer(train_pipeline.PipelinedTrainer):
+    """The shipped trainer, its stage actors the counted subclass (the
+    same lease and placement as ``PipelinedTrainer._spawn_stage``)."""
+
+    def _spawn_stage(self, i: int):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.core.placement import placement_group_strategy
+
+        return rt.remote(_CountedPipelineStage).options(
+            num_cpus=self.resources_per_stage.get("CPU", 1),
+            num_gpus=self.resources_per_stage.get("GPU", 0) or None,
+            scheduling_strategy=placement_group_strategy(self._pg, i),
+            max_concurrency=4,
+        ).remote(i, self.cfg, self._run_id)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-9)
+
+
+def pipeline_train(rt, cfg, batch: int, seq: int, micro: int, steps: int,
+                   stage_resources: dict, device) -> dict:
+    """13a: ``cfg`` cut by ``gpt2_stage_modules`` into two stages, each an
+    actor leasing ``stage_resources``, trained ``steps`` steps of 1F1B by
+    ``PipelinedTrainer.fit``; every step's loss against ``reference_run``
+    of the same chunks here, the first against the plain path; each stage
+    process's launches, its stash, its peak memory and its edge copies."""
+    from ray_tpu_torch.train import PipelineConfig
+
+    data = _pipe_data(cfg.vocab_size, batch, seq, PIPE_SEED)
+    builder = train_pipeline.gpt2_stage_modules(cfg, 2, seed=PIPE_SEED)
+    rep = {"shape": {"batch": batch, "seq": seq, "microbatches": micro,
+                     "steps": steps, "layers_per_stage": cfg.n_layer // 2}}
+    ref, _ = train_pipeline.reference_run(
+        builder, 2, data, steps, num_microbatches=micro,
+        learning_rate=PIPE_LR, device=device)
+    plain_cfg = dataclasses.replace(cfg, attention="dense")
+    plain, _ = train_pipeline.reference_run(
+        train_pipeline.gpt2_stage_modules(plain_cfg, 2, seed=PIPE_SEED), 2,
+        data, 1, num_microbatches=micro, learning_rate=PIPE_LR,
+        device=device)
+    ref_ms = [w * 1e3 for w in ref.step_walls]
+    rep["sequential"] = {"losses": list(ref), "step_ms": ref_ms,
+                         "step_ms_median": float(np.median(ref_ms[1:]))}
+    # The same batch in one microbatch: what a microbatch costs by itself.
+    one, _ = train_pipeline.reference_run(
+        builder, 2, data, 4, num_microbatches=1, learning_rate=PIPE_LR,
+        device=device)
+    rep["sequential"]["one_microbatch_step_ms_median"] = float(
+        np.median(one.step_walls[1:])) * 1e3
+    if torch.device(device).type == "cuda":
+        # Three sequential steps under a kernel trace, less a run of one
+        # (the chunks' init and the first step's warm-up): kernel time and
+        # kernels a step, against the untraced step's wall time.  Copies
+        # are left out: each run ends by copying its state to the host,
+        # whose pageable copies take 0.5 s or so and vary from run to run.
+        def traced(n):
+            with kernel_trace() as prof:
+                train_pipeline.reference_run(
+                    builder, 2, data, n, num_microbatches=micro,
+                    learning_rate=PIPE_LR, device=device)
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith(("Memcpy", "Memset"))]
+            return (sum(e.self_device_time_total for e in ev) / 1e3,
+                    sum(e.count for e in ev))
+
+        (ms3, k3), (ms1, k1) = traced(3), traced(1)
+        sequential = rep["sequential"]
+        sequential.update(kernel_ms_per_step=(ms3 - ms1) / 2,
+                          kernels_per_step=(k3 - k1) / 2)
+        sequential["busy_share"] = (sequential["kernel_ms_per_step"]
+                                    / sequential["step_ms_median"])
+    rep["plain_first_loss"] = plain[0]
+    _sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    tr = _CountedPipelinedTrainer(
+        builder,
+        pipeline_config=PipelineConfig(num_stages=2, num_microbatches=micro,
+                                       recv_timeout_s=300.0),
+        data_per_step=data, num_steps=steps, learning_rate=PIPE_LR,
+        resources_per_stage=stage_resources)
+    try:
+        t0 = time.perf_counter()
+        res = tr.fit()
+        rep["fit_s"] = time.perf_counter() - t0
+        if res.error is not None:
+            raise AssertionError(f"13a: fit failed: {res.error!r}")
+        stats = tr._last_step_stats
+        stages = rt.get([s.report.remote((batch // micro, seq, cfg.d_model))
+                         for s in tr.stages], timeout=300)
+    finally:
+        tr.shutdown()
+
+    hist = res.metrics_history
+    losses = [m["loss"] for m in hist]
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"13a: losses {losses}")
+    errs = [_rel(a, b) for a, b in zip(losses, ref)]
+    if max(errs) > PIPE_TOL:
+        raise AssertionError(f"13a: pipelined losses {losses} against the "
+                             f"sequential run's {list(ref)}: relative "
+                             f"errors {errs} (tolerance {PIPE_TOL})")
+    plain_err = _rel(losses[0], plain[0])
+    if plain_err > PIPE_PLAIN_TOL:
+        raise AssertionError(f"13a: first loss {losses[0]} against the plain "
+                             f"path's {plain[0]}: {plain_err} (tolerance "
+                             f"{PIPE_PLAIN_TOL})")
+    per_layer = (cfg.n_layer // 2) * micro * steps
+    want = {"flash_fwd": 2 * per_layer, "flash_dq": per_layer,
+            "flash_dkv": per_layer}
+    for st in stages:
+        if st["launches"] != want:
+            raise AssertionError(f"13a: stage pid {st['pid']} launched "
+                                 f"{st['launches']}, want {want}")
+        if "GPU" in stage_resources and st["visible"] != "0":
+            raise AssertionError(f"13a: stage lease {st['visible']!r}")
+    hwm = [s["stash_hwm"] for s in stats]
+    if hwm[0] > 2:
+        raise AssertionError(f"13a: stage 0 held {hwm[0]} inputs, 1F1B "
+                             "bounds it at 2")
+    step_ms = [m["step_wall_s"] * 1e3 for m in hist[1:]]
+    sends = micro  # each stage sends one tensor a microbatch
+    rep.update(
+        losses=losses, rel_err_sequential=errs, rel_err_plain=plain_err,
+        step_ms=step_ms, step_ms_median=float(np.median(step_ms)),
+        step_ms_min=min(step_ms),
+        tokens_per_s=batch * seq / (float(np.median(step_ms)) / 1e3),
+        # The same kernels run in the pipelined step: the sequential
+        # step's kernel time over the pipelined step's wall time.
+        busy_share_estimate=(rep["sequential"].get("kernel_ms_per_step",
+                                                   float("nan"))
+                             / float(np.median(step_ms))),
+        bubble_fraction=[m["bubble_fraction"] for m in hist],
+        bubble_fraction_median=float(np.median(
+            [m["bubble_fraction"] for m in hist[1:]])),
+        theoretical_bubble=train_pipeline.theoretical_bubble_fraction(
+            2, micro),
+        stash_hwm=hwm, launches=[st["launches"] for st in stages],
+        stage_stats=[{k: s[k] for k in ("fwd_s", "bwd_s", "stall_s",
+                                        "wall_s", "channel")}
+                     for s in stats],
+        edges={name: {"d2h_ms_median_on_path": float(np.median(
+                          st["d2h_ms"][sends:])),
+                      "alone": st["edge_copy"], "bytes": st["edge_bytes"]}
+               for name, st in zip(("forward", "backward"), stages)},
+        peak_mb=[st["peak_mb"] for st in stages],
+        pids=[st["pid"] for st in stages])
+    return rep
+
+
+def _autoscaled_kernels(device: str, seed: int) -> dict:
+    """13b's task, on the node the autoscaler launched: the flash forward
+    (#1) at GPT-2 small's prefill width and decode (#4) at its serving
+    shape, each against its plain version; its lease and launch counts."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the autoscaled task sees no CUDA device")
+    reset_counters()
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(
+            torch.bfloat16)
+
+    q, k, v = rand(1, 1000, 12, 64), rand(1, 1000, 12, 64), rand(1, 1000,
+                                                                 12, 64)
+    flash_err = assert_close(flash_attention(q, k, v, causal=True),
+                             reference_attention(q, k, v, causal=True),
+                             "13b flash forward")
+    n_layer, b, h, hkv, d = GPT2_DECODE
+    qd = rand(b, h, d)
+    kc, vc = rand(n_layer, b, hkv, 1024, d), rand(n_layer, b, hkv, 1024, d)
+    pos = torch.tensor([0, 1, 63, 64, 333, 700, 1022, 1023],
+                       dtype=torch.int32, device=device)
+    dec_err = assert_close(
+        decode_attention(qd, kc, vc, pos, n_layer - 1),
+        reference_decode_attention(qd, kc, vc, pos, n_layer - 1),
+        "13b decode")
+    return {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "card": (torch.cuda.get_device_name(0)
+                     if torch.device(device).type == "cuda" else "cpu"),
+            "flash_max_abs_err": flash_err, "decode_max_abs_err": dec_err,
+            "launches": {"flash_fwd": flash_attention.launches,
+                         "decode_attention": decode_attention.launches}}
+
+
+def _gpu_total(rt) -> float:
+    return rt.cluster_resources().get("GPU", 0.0)
+
+
+def autoscale_gpu_node(rt, ctx, device, idle_timeout_s: float) -> dict:
+    """13b: a head with no card, an ``Autoscaler`` over
+    ``FakeMultiNodeProvider`` with one node type ``{"CPU": 2, "GPU": 1}``
+    (min 0, max 1), and a ``num_gpus=1`` task with nothing to run it on:
+    the node is launched, the task runs #1 and #4 there, the card's lease
+    comes back, and the node is drained and terminated."""
+    from ray_tpu_torch.autoscaler import (
+        Autoscaler,
+        AutoscalingConfig,
+        FakeMultiNodeProvider,
+        NodeTypeConfig,
+    )
+
+    if _gpu_total(rt) != 0.0:
+        raise AssertionError(f"13b: the head registered {rt.cluster_resources()}")
+    cp = ctx.address_info["cp_address"]
+    provider = FakeMultiNodeProvider(cp, ctx.address_info["session_id"])
+    rep = {}
+    try:
+        scaler = Autoscaler(AutoscalingConfig(
+            node_types={"gpu1": NodeTypeConfig(
+                "gpu1", {"CPU": 2.0, "GPU": 1.0}, min_workers=0,
+                max_workers=1)},
+            idle_timeout_s=idle_timeout_s), provider, cp)
+        task = rt.remote(num_cpus=1, num_gpus=1)(_autoscaled_kernels)
+        t0 = time.perf_counter()
+        ref = task.remote(device, AUTOSCALE_SEED)
+        while True:
+            decision = scaler.update()
+            now = time.perf_counter() - t0
+            if decision.to_launch and "launch_decided_s" not in rep:
+                rep["launch_decided_s"] = now
+            if _gpu_total(rt) == 1.0 and "node_up_s" not in rep:
+                rep["node_up_s"] = now
+            done, _ = rt.wait([ref], timeout=0.5)
+            if done:
+                break
+            if now > 600:
+                raise AssertionError("13b: the task found no GPU node")
+        result = rt.get(ref, timeout=60)
+        rep["result_s"] = time.perf_counter() - t0
+        rep["gpu_total_up"] = _gpu_total(rt)
+        if rep["gpu_total_up"] != 1.0:
+            raise AssertionError(f"13b: GPU total {rep['gpu_total_up']} with "
+                                 "the node up")
+        if torch.device(device).type == "cuda" and result["visible"] != "0":
+            raise AssertionError(f"13b: task lease {result['visible']!r}")
+        if result["launches"] != {"flash_fwd": 1, "decode_attention": 1}:
+            raise AssertionError(f"13b: task launched {result['launches']}")
+        rep["card_free_wait_s"] = wait_card_free(rt)
+        t1 = time.perf_counter()
+        while provider.non_terminated_nodes() or _gpu_total(rt) != 0.0:
+            if time.perf_counter() - t1 > 180:
+                raise AssertionError(
+                    f"13b: no scale-down: {provider.non_terminated_nodes()}, "
+                    f"{rt.cluster_resources()}")
+            time.sleep(0.5)
+            scaler.update()
+        rep["scale_down_s"] = time.perf_counter() - t1
+        rep["gpu_total_down"] = _gpu_total(rt)
+        rep["task"] = result
+        rep["provider"] = {"create_calls": provider.create_calls,
+                           "terminate_calls": provider.terminate_calls}
+    finally:
+        provider.shutdown()
+    return rep
+
+
+def pipeline_autoscale_phase(device="cuda", cfg=None, pipe_shape=None,
+                             stage_resources=None,
+                             idle_timeout_s=AUTOSCALE_IDLE_S,
+                             init_kwargs=None, head_kwargs=None) -> dict:
+    """Phase 13: 13a under a fresh ``ray_tpu_torch.init(num_cpus=4)``; 13b
+    under another whose head registers no card.  Every process it starts
+    is stopped before it returns."""
+    import ray_tpu_torch as rt
+
+    cfg = cfg or GPT2Config.small(dtype="bfloat16", attention="flash")
+    batch, seq, micro, steps = pipe_shape or (PIPE_BATCH, cfg.max_seq,
+                                              PIPE_MICRO, PIPE_STEPS)
+    rep = {}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4, **(init_kwargs or {}))
+    try:
+        rep["pipeline"] = pipeline_train(
+            rt, cfg, batch, seq, micro, steps,
+            stage_resources or {"CPU": 1.0, "GPU": 0.5}, device)
+        wait_card_free(rt)
+    finally:
+        rt.shutdown()
+    rep["pipeline_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = rt.init(num_cpus=2, **(head_kwargs or {"resources": {"GPU": 0.0}}))
+    try:
+        rep["autoscale"] = autoscale_gpu_node(rt, ctx, device, idle_timeout_s)
+    finally:
+        rt.shutdown()
+    rep["autoscale_s"] = time.perf_counter() - t0
+    return rep
+
+
+def report_pipeline_autoscale_phase(card: str, rep: dict,
+                                    train_rep: dict) -> None:
+    """Phase 13's readings: one line of numbers, then the report as JSON."""
+    p, a = rep["pipeline"], rep["autoscale"]
+    edges = {k: {"d2h_ms_on_path": round(e["d2h_ms_median_on_path"], 3),
+                 "d2h_ms_alone": round(e["alone"]["d2h_ms"], 3),
+                 "h2d_ms_alone": round(e["alone"]["h2d_ms"], 3)}
+             for k, e in p["edges"].items()}
+    print(f"pipeline/autoscaler on {card}: 13a 1F1B step "
+          f"{p['step_ms_median']:.3f} ms median, {p['step_ms_min']:.3f} min "
+          f"({p['tokens_per_s']:.1f} tokens/s) against the sequential run's "
+          f"{p['sequential']['step_ms_median']:.3f} ms here and phase 5's "
+          f"{train_rep['mean_step_ms']:.3f} ms at B=32 (one microbatch of "
+          f"B={p['shape']['batch']}: "
+          f"{p['sequential']['one_microbatch_step_ms_median']:.3f} ms); "
+          f"the sequential step's kernel time "
+          f"{p['sequential'].get('kernel_ms_per_step', float('nan')):.3f} "
+          f"ms over {p['sequential'].get('kernels_per_step', float('nan')):.0f}"
+          f" kernels; bubble "
+          f"{p['bubble_fraction_median']:.4f} (theory "
+          f"{p['theoretical_bubble']:.4f}); losses within "
+          f"{max(p['rel_err_sequential']):.2e} of the sequential run, "
+          f"{p['rel_err_plain']:.2e} of the plain path; launches by stage "
+          f"{p['launches']}; stash {p['stash_hwm']}; peak MB {p['peak_mb']};"
+          f" edges {edges}; 13b node up {a.get('node_up_s', float('nan')):.1f}"
+          f" s, task result {a['result_s']:.1f} s, scale-down "
+          f"{a['scale_down_s']:.1f} s, GPU total {a['gpu_total_up']} -> "
+          f"{a['gpu_total_down']}", flush=True)
+    print("pipeline_autoscale " + json.dumps(rep), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4365,6 +4769,13 @@ def main() -> int:
                      for lr, t in gp["tune"]["trials"].items()}
     job_launches = gp["job"]["launches"]
     lap(12)
+    # Phase 13: the pipeline-parallel trainer, each stage a half-card actor,
+    # and the autoscaler, its task on a GPU node launched on demand.
+    pa = pipeline_autoscale_phase()
+    report_pipeline_autoscale_phase(card, pa, train_rep)
+    pipe_launches = pa["pipeline"]["launches"]
+    task_launches = pa["autoscale"]["task"]["launches"]
+    lap(13)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
@@ -4392,6 +4803,8 @@ def main() -> int:
          "launches_data_n2": c2["launches"]["decode_attention"],
          # Phase 12: in 12c's job task.
          "launches_job": job_launches["decode_attention"],
+         # Phase 13: in 13b's task on the autoscaled node.
+         "launches_autoscaled_task": task_launches["decode_attention"],
          "max_abs_err": dec["self"]["max_abs_err"],
          "ms": dec["self"]["ms"], "event_ms": dec["self"]["event_ms"],
          "plain_ms": dec["self"]["plain_ms"],
@@ -4423,6 +4836,9 @@ def main() -> int:
          "launches_tune": {lr: t["flash_fwd"]
                            for lr, t in tune_launches.items()},
          "launches_job": job_launches["flash_fwd"],
+         # Phase 13: in 13a's two stage actors, and 13b's autoscaled task.
+         "launches_pipeline": [s["flash_fwd"] for s in pipe_launches],
+         "launches_autoscaled_task": task_launches["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
@@ -4447,6 +4863,7 @@ def main() -> int:
             "launches_train_worker": worker_launches[name],
             "launches_dp_ranks": [int(r[i]) for r in dp_ranks],
             "launches_tune": {lr: t[name] for lr, t in tune_launches.items()},
+            "launches_pipeline": [s[name] for s in pipe_launches],
             "max_abs_err": max(errs),
             "ms": rec["ms"], "event_ms": rec["event_ms"],
             "plain_ms": rec["plain_ms"],

@@ -18,6 +18,18 @@ from .scheduler import PlacementGroupStrategy
 VALID_STRATEGIES = ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD")
 
 
+def _no_accelerator_version(accelerator_version: str) -> None:
+    """A port node has no ``TPU-<version>`` style resource: the card's
+    model is its ``accelerator_type`` label.  A version would become a
+    bundle resource no node has, and the group would never place."""
+    if accelerator_version:
+        raise ValueError(
+            f"accelerator_version={accelerator_version!r}: GPU nodes carry "
+            "no per-model resource; select the model by the "
+            "'accelerator_type' node label instead"
+        )
+
+
 class PlacementGroup:
     def __init__(self, pg_id: PlacementGroupID, bundles: List[Dict[str, float]],
                  created: bool = False):
@@ -114,29 +126,24 @@ def pipeline_stage_placement_group(
 ) -> PlacementGroup:
     """One bundle per pipeline stage — the MPMD trainer's placement shape.
 
-    Each stage actor pins to its own bundle so adjacent stages land on
-    distinct slices (SPREAD; STRICT_SPREAD when TPU chips are requested,
-    matching ``SlicePlacementGroup``'s whole-slice ownership semantics:
-    a stage's ICI mesh is never shared with its neighbor).  On a CPU
-    cluster the bundles degrade to per-host/per-process CPU bundles,
-    which is what the tier-1 tests exercise.
+    Each stage actor pins to its own bundle, SPREAD over nodes.
+    ``chips_per_stage`` asks each bundle for that many GPUs.  The strategy
+    stays SPREAD with cards too: a card lease is exclusive already, there
+    is no host-wide ICI mesh to keep whole, and STRICT_SPREAD would refuse
+    two stages on one multi-card host.  On a CPU cluster the bundles
+    degrade to per-host/per-process CPU bundles, which is what the tier-1
+    tests exercise.
     """
     if num_stages < 1:
         raise ValueError("num_stages must be >= 1")
+    _no_accelerator_version(accelerator_version)
     if resources_per_stage:
         bundle = dict(resources_per_stage)
     else:
         bundle = {"CPU": 1.0}
     if chips_per_stage:
-        bundle["TPU"] = float(chips_per_stage)
-        if accelerator_version:
-            bundle[f"TPU-{accelerator_version}"] = float(chips_per_stage)
-    if num_stages == 1:
-        strategy = "PACK"
-    elif "TPU" in bundle:
-        strategy = "STRICT_SPREAD"
-    else:
-        strategy = "SPREAD"
+        bundle["GPU"] = float(chips_per_stage)
+    strategy = "PACK" if num_stages == 1 else "SPREAD"
     return placement_group(
         [dict(bundle) for _ in range(num_stages)],
         strategy=strategy,
@@ -155,8 +162,8 @@ class PodracerPlacement:
     ``num_learner_bundles`` "learner"-role bundles (the v-trace
     learner).  Reserving both roles in ONE group keeps the gang atomic —
     a half-placed Sebulba job (runners without a learner) can never hold
-    resources.  SPREAD by default; STRICT_SPREAD when chips are
-    requested, matching ``SlicePlacementGroup`` whole-slice ownership.
+    resources.  SPREAD, with or without cards: ``chips_per_actor`` and
+    ``chips_per_learner`` ask for GPUs, whose leases are exclusive already.
     """
 
     def __init__(
@@ -175,28 +182,21 @@ class PodracerPlacement:
             raise ValueError(
                 "need >= 1 actor bundle and >= 0 learner bundles"
             )
+        _no_accelerator_version(accelerator_version)
         self.num_actor_bundles = num_actor_bundles
         self.num_learner_bundles = num_learner_bundles
 
         def _bundle(base, chips):
             b = dict(base) if base else {"CPU": 1.0}
             if chips:
-                b["TPU"] = float(chips)
-                if accelerator_version:
-                    b[f"TPU-{accelerator_version}"] = float(chips)
+                b["GPU"] = float(chips)
             return b
 
         actor_bundle = _bundle(actor_resources, chips_per_actor)
         learner_bundle = _bundle(learner_resources, chips_per_learner)
         bundles = [dict(actor_bundle) for _ in range(num_actor_bundles)]
         bundles += [dict(learner_bundle) for _ in range(num_learner_bundles)]
-        any_tpu = "TPU" in actor_bundle or "TPU" in learner_bundle
-        if len(bundles) == 1:
-            strategy = "PACK"
-        elif any_tpu:
-            strategy = "STRICT_SPREAD"
-        else:
-            strategy = "SPREAD"
+        strategy = "PACK" if len(bundles) == 1 else "SPREAD"
         self.pg = placement_group(
             bundles, strategy=strategy, name=name, priority=priority
         )
@@ -234,12 +234,12 @@ def podracer_placement_group(
 
 
 class SlicePlacementGroup:
-    """Reserve a whole TPU slice (all hosts of a pod) as one gang unit.
+    """Reserve whole hosts as one gang unit.
 
-    One bundle per host, each requesting the host's chips; STRICT_SPREAD so
-    each bundle lands on a distinct host of the slice.  Workers of a
-    JaxTrainer-style gang schedule into these bundles, guaranteeing the ICI
-    mesh is fully owned by one job.
+    One bundle per host, each requesting the host's cards
+    (``{"GPU": chips_per_host}``); STRICT_SPREAD so each bundle lands on a
+    distinct host.  Workers of a trainer's gang schedule into these
+    bundles, so each host's cards are owned by one job.
     """
 
     def __init__(
@@ -250,15 +250,12 @@ class SlicePlacementGroup:
         name: str = "",
         priority: Optional[int] = None,
     ):
+        _no_accelerator_version(accelerator_version)
         self.num_hosts = num_hosts
         self.chips_per_host = chips_per_host
-        resource = f"TPU-{accelerator_version}" if accelerator_version else "TPU"
         bundles = [
-            {"TPU": float(chips_per_host)} for _ in range(num_hosts)
+            {"GPU": float(chips_per_host)} for _ in range(num_hosts)
         ]
-        if accelerator_version:
-            for b in bundles:
-                b[resource] = float(chips_per_host)
         strategy = "STRICT_SPREAD" if num_hosts > 1 else "PACK"
         self.pg = placement_group(
             bundles, strategy=strategy, name=name, priority=priority

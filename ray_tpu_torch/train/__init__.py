@@ -14,6 +14,12 @@ from .config import (  # noqa: F401
     RunConfig,
     ScalingConfig,
 )
+from .pipeline import (  # noqa: F401
+    PipelinedTrainer,
+    StageModule,
+    build_1f1b_schedule,
+    gpt2_stage_modules,
+)
 from .session import (  # noqa: F401
     get_checkpoint,
     get_context,

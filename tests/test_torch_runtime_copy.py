@@ -9,8 +9,8 @@ change on either side (a fix made in the JAX twin and not carried over, an
 edit to the port) changes the diff and fails until the new diff is
 reviewed and its digest, which the failure prints, is written down.  A
 listed file that no longer differs fails too, so the list stays exact; a
-module of ``ray_tpu/{collective,core,dag,data,job,scripts,serve,train,
-tune,util}`` with no twin
+module of ``ray_tpu/{autoscaler,collective,core,dag,data,job,scripts,
+serve,train,tune,util}`` with no twin
 must be listed in ``WAITING`` with the ROADMAP item it waits for, or in
 ``COUNTERPARTS`` beside the port module that takes its place under another
 name, and a port module with no twin in ``PORT_ONLY``.
@@ -28,14 +28,24 @@ JAX_PKG = os.path.join(REPO, "ray_tpu")
 PORT_PKG = os.path.join(REPO, "ray_tpu_torch")
 
 # The runtime's files, relative to each package root.
-RUNTIME_DIRS = ("collective", "core", "dag", "data", "job", "scripts",
-                "serve", "train", "tune", "util", "util/state")
+RUNTIME_DIRS = ("autoscaler", "collective", "core", "dag", "data", "job",
+                "scripts", "serve", "train", "tune", "util", "util/state")
 RUNTIME_FILES = ("__init__.py", "__main__.py", "_version.py", "api.py",
                  "collective/device_objects.py", "collective/p2p.py",
                  "dashboard.py", "dashboard_ui.py")
 
 # rel: (why it differs, digest of its pinned diff)
 DIVERGES = {
+    "autoscaler/command_runner.py": ("the default stop command matches the "
+                                     "port's `ray_tpu_torch.core` processes, "
+                                     "which the JAX package's "
+                                     "`[r]ay_tpu[.]core` never matches",
+                                     "f52b637396a69aac"),
+    "autoscaler/provider.py": ("a fake node registers a card only where its "
+                               "node type names GPU (the port's Node merges "
+                               "the host's detected card); GCEGPUProvider "
+                               "makes GPU VMs in place of GKETPUProvider's "
+                               "TPU VMs", "5af630f49f5011ae"),
     "__init__.py": ("the port's package docstring; its public names, "
                     "`resolve_device` (torch) among them, and the `api` "
                     "module resolve lazily beside the lazy `dag`",
@@ -78,6 +88,11 @@ DIVERGES = {
                             "and CUDA tensors; tensors are not cached as "
                             "given on put; profiles go under the temp dir, "
                             "not /tmp", "ff8d15eea3a6fff1"),
+    "core/placement.py": ("chip counts ask for GPU bundles, SPREAD for "
+                          "pipeline stages and Podracer roles; "
+                          "accelerator_version raises (a GPU node carries "
+                          "its model as a label, no TPU-<version> "
+                          "resource)", "2738898380127b98"),
     "core/node.py": ("head info under the temp dir, not /tmp, so checkouts "
                      "with their own TMPDIR never share a head",
                      "c95c58f74848fc87"),
@@ -110,14 +125,21 @@ DIVERGES = {
                                 "jax.block_until_ready",
                                 "f1490ad47578784a"),
     "train/__init__.py": ("no JaxBackend and JaxTrainer (TorchBackend and "
-                          "TorchTrainer take their role); the pipeline names "
-                          "wait for train/pipeline.py", "dd7d8a6cc32ce2d5"),
+                          "TorchTrainer take their role)", "b797446bd11bd7a7"),
     "train/backend.py": ("TorchBackend picks nccl or gloo by the workers' "
                          "card leases, as asked otherwise; no JaxBackend",
                          "e23b21cce8f59e6e"),
     "train/config.py": ("ScalingConfig leases GPUs (use_gpu, "
                         "gpus_per_worker) in place of TPU chips",
                         "4594720ffd68a5df"),
+    "train/pipeline.py": ("chunks on tensors: forward without autograd, "
+                          "backward by recomputing under autograd, "
+                          "torch.optim.AdamW with optax.adamw's defaults; "
+                          "per-chunk GPT-2 init from a torch.Generator; "
+                          "q8 on tensors; DP over a LocalGroup; stages run "
+                          "on their leased card (num_gpus) or the CPU; "
+                          "reference_run takes a device",
+                          "7d45bb850b925a99"),
     "train/session.py": ("TrainContext carries the torch.distributed "
                          "backend", "f9c7130b1df0ec7c"),
     "train/trainer.py": ("no JaxTrainer; the result's metrics name the "
@@ -130,7 +152,7 @@ DIVERGES = {
 
 # Modules of the JAX package's runtime directories that the port has not
 # copied yet, by the ROADMAP item they wait for.
-WAITING = {"train/pipeline.py": "A2"}
+WAITING = {}
 
 PORT_ONLY = {
     "core/gpu_detect.py": "NVIDIA GPU detection, beside tpu_detect.py",

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive ray_tpu_torch's serving and training paths, its runtime, its Data
 layer, its collective layer and Train, its DAGs, Tune and jobs, its
-pipeline-parallel trainer and its autoscaler on one NVIDIA GPU and check
+pipeline-parallel trainer, its autoscaler and its parallel layer (ring and
+Ulysses attention, the sharded train step) on one NVIDIA GPU and check
 them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
@@ -171,6 +172,26 @@ Phases (none is caught: any failure exits non-zero):
      decode there against their plain versions; the cluster's GPU total is
      1 while the node is up and 0 after it is drained away; the seconds to
      launch, to the result and to scale down.
+ 14. ``parallel/`` on the card: (a) ring and Ulysses attention over a
+     ``LocalGroup`` of 4 ranks, all on ``cuda:0``, at GPT-2 small's
+     attention (B=4, global S=4096, H=12, D=64, bf16, causal), forward and
+     backward: the ring's kernel route (the flash forward on each block,
+     merged by lse; a second ring of the dQ and dK/dV kernels) and
+     Ulysses with the flash kernels as its attention, each held against
+     the flash kernels over the whole sequence (out, dQ, dK and dV element
+     by element at 2e-2 absolute and relative, and each gradient within
+     2e-2 by norm in each rank's sequence block), the ring also against
+     the plain ring on the same inputs; 10/10/10 and 4/4/4 launches a
+     call; ms a forward and backward beside the whole-sequence kernels';
+     (b) GPT-2 small (bf16, ``attention="ring"``) placed by
+     ``shard_pytree`` with ``gpt2_param_axes()`` on a world-of-one NCCL
+     ``DeviceMesh``, trained 2 + 5 steps of ``gpt2_loss(..., mesh=mesh)``
+     and AdamW at B=32 x S=1024, beside the unsharded flash step on the
+     same weights and tokens: the first step's gradient of every leaf
+     within 2e-2 by norm, losses within 2e-3 every step, 12/12/12
+     launches a step, ms a step and tokens/s of both and phase 5's.
+     ``tools/parallel_cards.py`` runs 14a and 14b as a world of one
+     process a card.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -4512,6 +4533,305 @@ def report_pipeline_autoscale_phase(card: str, rep: dict,
     print("pipeline_autoscale " + json.dumps(rep), flush=True)
 
 
+# ----------------------------------------------------------------- phase 14
+SP_RANKS = 4  # 14a: ranks of the single-controller ring on cuda:0
+SP_SHAPE = (4, 4096, 12, 64)  # B, global S, H, D: GPT-2 small's attention
+SP_SEED = SEED + 150
+SP_REPS = 5  # timed forward+backward calls of each route
+SHARDED_STEPS = (2, 5)  # 14b: warm-up and timed steps
+SHARDED_TOL = 2e-3  # 14b: |sharded loss - unsharded loss| in every step
+# 14b: ||g_sharded - g_unsharded|| / ||g_unsharded||, each leaf's gradient
+# of the first step, before any update.
+SHARDED_GRAD_TOL = 2e-2
+
+
+def _here(device: str):
+    """This process's device: its current card, or the CPU."""
+    if device == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def _slowest(ms: float) -> float:
+    """The largest of every rank's ``ms`` in a world of several processes;
+    ``ms`` itself outside one."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return ms
+    t = torch.tensor([ms], dtype=torch.float64)
+    if dist.get_backend() == "nccl":
+        t = t.cuda()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _call_ms(fn, reps: int, device) -> float:
+    """ms a call: CUDA events on the card, the host clock on the CPU (a
+    rehearsal there), the slowest rank's in a world of several."""
+    if device.type == "cuda":
+        return _slowest(event_ms(fn, reps))
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return _slowest((time.perf_counter() - t0) / reps * 1e3)
+
+
+def _fwd_bwd(attn, q, k, v, do):
+    """One forward and backward of ``attn``: (out, dq, dk, dv)."""
+    q, k, v = (x.detach().requires_grad_(True) for x in (q, k, v))
+    out = attn(q, k, v)
+    torch.autograd.backward(out, do)
+    return out.detach(), q.grad, k.grad, v.grad
+
+
+def _held(got, want, what: str, blocks: int) -> dict:
+    """(out, dq, dk, dv) against ``want``, element by element at TOL
+    (absolute and relative); beside each gradient's largest error, its
+    relative error by norm in each of the ``blocks`` sequence blocks a
+    rank holds (||got - want|| / ||want||), held at TOL too."""
+    errs = {"out": assert_close(got[0], want[0], f"{what} out")}
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what} {name}: non-finite gradient")
+        errs[name] = assert_close(g, w, f"{what} {name}")
+        rel = [float((gb.float() - wb.float()).norm() / wb.float().norm())
+               for gb, wb in zip(g.chunk(blocks, 1), w.chunk(blocks, 1))]
+        if max(rel) > TOL:
+            raise AssertionError(f"{what} {name}: relative error by block "
+                                 f"{rel} (tolerance {TOL})")
+        errs[f"{name}_rel_by_block"] = rel
+    return errs
+
+
+def seq_parallel_attention(ranks: int = SP_RANKS, shape=SP_SHAPE,
+                           reps: int = SP_REPS, device="cuda",
+                           mesh=None) -> dict:
+    """14a: ring and Ulysses attention, forward and backward, at GPT-2
+    small's attention (bf16, causal), held against the whole-sequence
+    flash kernels and, for the ring, against the plain ring on the same
+    inputs; launches of one kernel-route call counted, each route timed
+    against the whole-sequence flash forward+backward (the same causal
+    FLOPs).  The ranks are a ``LocalGroup`` of ``ranks`` on cuda:0 (one
+    process holds them all), or, given ``mesh``, the seq axis of a
+    ``DeviceMesh`` of one process a card: each process then holds one
+    rank, and its launches are its own (the ring's rank i runs i + 1
+    blocks).  Launches are held on the card only: the CPU runs the
+    kernels' plain versions, which count nothing."""
+    import functools
+
+    from ray_tpu_torch.collective import LocalGroup
+    from ray_tpu_torch.parallel import ring_attention, ulysses_attention
+    from ray_tpu_torch.parallel.mesh import axis_size
+
+    if mesh is None:
+        dev = torch.device(device, 0) if device == "cuda" else torch.device(
+            device)
+        group, held = LocalGroup("sp_phase", devices=[dev] * ranks), ranks
+        ring_blocks = ranks * (ranks + 1) // 2
+    else:
+        dev, group, held = _here(device), mesh, 1
+        ranks = axis_size(mesh, "seq")
+        ring_blocks = mesh.get_local_rank("seq") + 1
+    gen = torch.Generator(dev).manual_seed(SP_SEED)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16) for _ in range(4))
+    whole = functools.partial(flash_attention, causal=True)
+    routes = {
+        "ring": functools.partial(ring_attention, mesh=group, causal=True,
+                                  route="kernel"),
+        "ulysses": functools.partial(ulysses_attention, mesh=group,
+                                     causal=True, attn_fn=whole),
+    }
+    want_launches = {
+        "ring": {k: ring_blocks for k in ("flash_fwd", "flash_dq",
+                                          "flash_dkv")},
+        "ulysses": {k: held for k in ("flash_fwd", "flash_dq",
+                                      "flash_dkv")}}
+    ref = _fwd_bwd(whole, q, k, v, do)
+    rep = {"ranks": ranks, "shape": list(shape), "dtype": "bfloat16",
+           "whole_ms": _call_ms(lambda: _fwd_bwd(whole, q, k, v, do), reps,
+                                dev)}
+    for name, attn in routes.items():
+        reset_counters()
+        got = _fwd_bwd(attn, q, k, v, do)
+        launches = flash_counts()
+        if dev.type == "cuda" and launches != want_launches[name]:
+            raise AssertionError(f"{name}: launches {launches}, want "
+                                 f"{want_launches[name]}")
+        r = {"launches": launches,
+             "vs_whole_kernel": _held(got, ref, f"{name} vs whole flash",
+                                      ranks)}
+        if name == "ring":
+            plain = _fwd_bwd(functools.partial(ring_attention, mesh=group,
+                                               causal=True, route="plain"),
+                             q, k, v, do)
+            r["vs_plain_ring"] = _held(got, plain, "ring vs plain ring",
+                                       ranks)
+        r["ms"] = _call_ms(lambda: _fwd_bwd(attn, q, k, v, do), reps, dev)
+        r["ms_over_whole"] = r["ms"] / rep["whole_ms"]
+        rep[name] = r
+    return rep
+
+
+def _grads(params) -> dict:
+    """Each leaf's gradient, whole (a sharded one gathered), in f32."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for name, p in params.named_parameters():
+        g = p.grad
+        out[name] = (g.full_tensor() if isinstance(g, DTensor)
+                     else g).detach().float()
+    return out
+
+
+def sharded_train(cfg, batch: int, seq: int, steps=SHARDED_STEPS,
+                  lr: float = 1e-4, device="cuda", mesh_cfg=None,
+                  loss_tol: float = SHARDED_TOL) -> dict:
+    """14b: ``cfg`` (attention="ring") trained through ``shard_pytree``
+    and ``gpt2_loss(..., mesh=mesh)``, beside the unsharded step with
+    ``attention="flash"`` on the same params and tokens: the first step's
+    gradient of every leaf within ``SHARDED_GRAD_TOL`` by norm, losses
+    within ``loss_tol`` every step, ``cfg.n_layer`` launches of each
+    flash kernel a step and a ring block (the ring's rank i runs i + 1
+    blocks), ms a step and tokens/s of both.  The mesh is ``mesh_cfg``
+    (default: every axis 1) over the caller's ``torch.distributed`` world,
+    one process a card, or, when there is none, over a world of one made
+    here (NCCL on the card) and ended after.  Every rank runs the
+    unsharded step too, on its own card."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt2_init, gpt2_loss, gpt2_param_axes
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh, shard_pytree
+    from ray_tpu_torch.parallel.spmd import LocalShardOptimizer
+
+    dev = _here(device)
+    on_card = dev.type == "cuda"
+    own_world = not dist.is_initialized()
+    if own_world:
+        dist.init_process_group(
+            "nccl" if on_card else "gloo",
+            init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+            world_size=1)
+    mesh_cfg = mesh_cfg or MeshConfig()
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    try:
+        mesh = build_mesh(mesh_cfg)
+        blocks = mesh.get_local_rank("seq") + 1
+        base = gpt2_init(torch.Generator(dev).manual_seed(SP_SEED + 1), cfg,
+                         device=dev)
+        rng = np.random.default_rng(SP_SEED + 2)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (batch, seq + 1))).to(dev)
+        adamw = dict(lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+        runs, first_grads = {}, {}
+        for name in ("unsharded", "sharded"):
+            if name == "sharded":
+                params = shard_pytree(base, gpt2_param_axes(), mesh)
+                run_cfg, run_mesh, per_block = cfg, mesh, blocks
+            else:
+                params = type(base)({
+                    **{k: v.detach().clone()
+                       for k, v in base.named_parameters(recurse=False)},
+                    "blocks": {k: v.detach().clone()
+                               for k, v in base.blocks.items()}})
+                run_cfg = dataclasses.replace(cfg, attention="flash")
+                run_mesh, per_block = None, 1
+            params.requires_grad_(True)
+            opt = LocalShardOptimizer(params.parameters(), torch.optim.AdamW,
+                                      **adamw)
+            losses, per_step = [], []
+            sync()
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            for i in range(sum(steps)):
+                if i == steps[0]:
+                    sync()
+                    t0 = time.perf_counter()
+                before = flash_counts()
+                loss = gpt2_loss(params, tokens, run_cfg, run_mesh)
+                loss.backward()
+                if i == 0:
+                    first_grads[name] = _grads(params)
+                opt.step()
+                opt.zero_grad()
+                losses.append(loss.detach())
+                per_step.append({k: n - before[k]
+                                 for k, n in flash_counts().items()})
+            sync()
+            step_ms = _slowest((time.perf_counter() - t0) / steps[1] * 1e3)
+            runs[name] = {
+                "losses": torch.stack(losses).float().tolist(),
+                "mean_step_ms": step_ms,
+                "tokens_per_s": batch * seq / (step_ms / 1e3),
+                "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                if on_card else None),
+                "launches": flash_counts(), "launches_per_step": per_step[0]}
+            want = {k: cfg.n_layer * per_block for k in per_step[0]}
+            if on_card and any(c != want for c in per_step):
+                raise AssertionError(f"{name}: launches per step {per_step},"
+                                     f" want {want}")
+            del params, opt
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        if own_world:
+            dist.destroy_process_group()
+    grad_rel = {k: float((g - first_grads["unsharded"][k]).norm()
+                         / first_grads["unsharded"][k].norm())
+                for k, g in first_grads["sharded"].items()}
+    del first_grads
+    gaps = [abs(a - b) for a, b in zip(runs["sharded"]["losses"],
+                                       runs["unsharded"]["losses"])]
+    if not all(np.isfinite(runs["sharded"]["losses"])):
+        raise AssertionError(f"non-finite loss: {runs['sharded']['losses']}")
+    if max(grad_rel.values()) > SHARDED_GRAD_TOL:
+        raise AssertionError(f"first-step gradients by leaf, relative to the "
+                             f"unsharded step's: {grad_rel} (tolerance "
+                             f"{SHARDED_GRAD_TOL})")
+    if max(gaps) > loss_tol:
+        raise AssertionError(f"sharded losses {runs['sharded']['losses']} "
+                             f"against {runs['unsharded']['losses']}: gap "
+                             f"{max(gaps)} > {loss_tol}")
+    return {"batch": batch, "seq": seq, "dtype": cfg.dtype,
+            "warmup_steps": steps[0], "timed_steps": steps[1],
+            "mesh": list(mesh_cfg.shape), "loss_gaps": gaps,
+            "loss_tol": loss_tol, "grad_rel_err": grad_rel,
+            "max_grad_rel_err": max(grad_rel.values()), **runs}
+
+
+def parallel_phase(cfg=None, batch: int = 32, seq: int = 1024) -> dict:
+    """Phase 14: ``parallel/`` on the card.  14a ring and Ulysses over 4
+    ranks on cuda:0; 14b GPT-2 small trained through the sharded path."""
+    cfg = cfg or GPT2Config.small(dtype="bfloat16", attention="ring")
+    return {"seq_parallel": seq_parallel_attention(),
+            "sharded_train": sharded_train(cfg, batch, seq)}
+
+
+def report_parallel_phase(card: str, rep: dict, phase5: dict) -> None:
+    sp, st = rep["seq_parallel"], rep["sharded_train"]
+    sh, un = st["sharded"], st["unsharded"]
+    print(f"parallel on {card}: 14a {sp['ranks']} ranks on cuda:0, "
+          f"B,S,H,D={sp['shape']} bf16 causal: ring forward+backward "
+          f"{sp['ring']['ms']:.3f} ms, Ulysses {sp['ulysses']['ms']:.3f} ms, "
+          f"whole-sequence flash {sp['whole_ms']:.3f} ms (ratios "
+          f"{sp['ring']['ms_over_whole']:.3f}, "
+          f"{sp['ulysses']['ms_over_whole']:.3f}); launches ring "
+          f"{sp['ring']['launches']}, Ulysses {sp['ulysses']['launches']}; "
+          f"14b GPT-2 small ring through shard_pytree on a world-of-one "
+          f"mesh: {sh['mean_step_ms']:.2f} ms a step, "
+          f"{sh['tokens_per_s']:.0f} tokens/s, against the unsharded flash "
+          f"step {un['mean_step_ms']:.2f} ms ({un['tokens_per_s']:.0f} "
+          f"tokens/s) and phase 5's remat step "
+          f"{phase5['mean_step_ms']:.2f} ms; largest loss gap "
+          f"{max(st['loss_gaps']):.2e}, largest first-step gradient error "
+          f"{st['max_grad_rel_err']:.2e} (by norm)", flush=True)
+    print("parallel " + json.dumps(rep), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4776,6 +5096,14 @@ def main() -> int:
     pipe_launches = pa["pipeline"]["launches"]
     task_launches = pa["autoscale"]["task"]["launches"]
     lap(13)
+    # Phase 14: parallel/ on the card: ring and Ulysses over 4 ranks on
+    # cuda:0, and GPT-2 small trained through the sharded path.
+    pp = parallel_phase()
+    report_parallel_phase(card, pp, train_rep)
+    sp_launches = {k: pp["seq_parallel"][k]["launches"]
+                   for k in ("ring", "ulysses")}
+    sharded_launches = pp["sharded_train"]["sharded"]["launches"]
+    lap(14)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
@@ -4839,6 +5167,11 @@ def main() -> int:
          # Phase 13: in 13a's two stage actors, and 13b's autoscaled task.
          "launches_pipeline": [s["flash_fwd"] for s in pipe_launches],
          "launches_autoscaled_task": task_launches["flash_fwd"],
+         # Phase 14: one kernel-route call of 14a's ring and of its
+         # Ulysses, and 14b's sharded steps.
+         "launches_ring": sp_launches["ring"]["flash_fwd"],
+         "launches_ulysses": sp_launches["ulysses"]["flash_fwd"],
+         "launches_sharded_train": sharded_launches["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
@@ -4864,6 +5197,9 @@ def main() -> int:
             "launches_dp_ranks": [int(r[i]) for r in dp_ranks],
             "launches_tune": {lr: t[name] for lr, t in tune_launches.items()},
             "launches_pipeline": [s[name] for s in pipe_launches],
+            "launches_ring": sp_launches["ring"][name],
+            "launches_ulysses": sp_launches["ulysses"][name],
+            "launches_sharded_train": sharded_launches[name],
             "max_abs_err": max(errs),
             "ms": rec["ms"], "event_ms": rec["event_ms"],
             "plain_ms": rec["plain_ms"],

@@ -18,6 +18,8 @@ raises.
 
 from __future__ import annotations
 
+import os
+import threading
 import time
 import uuid
 from typing import Any, Dict, List, Optional
@@ -99,6 +101,70 @@ class LLMServer:
         )
 
 
+# How often a disaggregated app's prefill and decode actors look for their
+# replica among the cluster's live actors.
+OWNER_POLL_S = 1.0
+
+
+def _current_actor_id() -> Optional[str]:
+    """The id (hex) of the actor this code runs in, or None."""
+    from ..core.core_worker import try_global_worker
+
+    spec = getattr(try_global_worker(), "actor_spec", None)
+    return None if spec is None else spec.actor_id.hex()
+
+
+def _exit_with(owner_id: Optional[str]) -> None:
+    """Start a daemon thread that ends this process once actor
+    ``owner_id`` is dead or gone from the cluster's state.  The serve
+    controller kills a deleted replica without a teardown call, and an
+    actor shares its fate with its job only, so the replica's children
+    end themselves; the node agent then returns their leases."""
+    if owner_id is None:
+        return
+
+    def watch():
+        from ..util.state import get_actor
+
+        while True:
+            time.sleep(OWNER_POLL_S)
+            try:
+                row = get_actor(owner_id)
+            except Exception:  # noqa: BLE001 — control plane busy: next poll
+                continue
+            if row is None or row.get("state") == "DEAD":
+                os._exit(0)
+
+    threading.Thread(target=watch, name="owner-watch", daemon=True).start()
+
+
+class _OwnedByReplica:
+    """Mixin of the disaggregated app's prefill and decode actors:
+    ``exit_with(owner_id)`` makes the actor exit once the replica whose
+    actor id that is has died (``_exit_with``)."""
+
+    def exit_with(self, owner_id: Optional[str]) -> None:
+        _exit_with(owner_id)
+
+
+def _hand_over(children) -> None:
+    """Tell ``children`` this replica's actor id once it has one: the
+    worker records an actor's id only after its constructor returns, so
+    a thread waits for it (a minute at most: outside an actor there is
+    none, and nothing to watch)."""
+
+    def run():
+        deadline = time.monotonic() + 60.0
+        while (owner := _current_actor_id()) is None:
+            if time.monotonic() > deadline:
+                return
+            time.sleep(0.05)
+        for child in children:
+            child.exit_with.remote(owner)
+
+    threading.Thread(target=run, name="hand-over", daemon=True).start()
+
+
 @serve.deployment(name="LLMDisaggServer", ray_actor_options={"num_cpus": 0})
 class LLMDisaggServer:
     """OpenAI endpoints over the disaggregated continuous-batching path.
@@ -111,7 +177,9 @@ class LLMDisaggServer:
     this replica (``serve.request.stream`` span) → prefill actor → decode
     actor, each hop inheriting the request's trace context, so one
     stitched cluster trace (returned in ``x-ray-tpu-trace-id``) covers
-    the whole batched streaming request."""
+    the whole batched streaming request.  The actors end themselves once
+    this replica is dead (``_OwnedByReplica``), so deleting the app frees
+    their leases."""
 
     def __init__(self, engine_cfg: Optional[EngineConfig] = None,
                  model_name: str = "ray-tpu-gpt2",
@@ -133,14 +201,15 @@ class LLMDisaggServer:
         gpu_share = 1.0 / (num_prefill + num_decode)
         Pre = ray_tpu_torch.remote(
             num_cpus=num_cpus_per_replica, num_gpus=gpu_share
-        )(PrefillReplica)
+        )(type("OwnedPrefillReplica", (_OwnedByReplica, PrefillReplica), {}))
         # max_concurrency is load-bearing: run()/run_stream() calls park
         # on per-request events while the resident loop decodes; a slot-
         # starved decode actor would serialize its clients.
         Dec = ray_tpu_torch.remote(
             num_cpus=num_cpus_per_replica, num_gpus=gpu_share,
             max_concurrency=64,
-        )(BatchedDecodeReplica)
+        )(type("OwnedBatchedDecodeReplica",
+               (_OwnedByReplica, BatchedDecodeReplica), {}))
         self._prefill = [
             Pre.remote(engine_cfg, device=device) for _ in range(num_prefill)
         ]
@@ -148,6 +217,7 @@ class LLMDisaggServer:
             Dec.remote(engine_cfg, cb_cfg, device=device)
             for _ in range(num_decode)
         ]
+        _hand_over(self._prefill + self._decode)
         # Fire-and-forget bucket pre-compile: on a loaded box the full
         # warm can take minutes, and blocking THIS replica's constructor
         # or health checks on it makes the serve reconciler strike out a

@@ -1,11 +1,18 @@
 """Model families of the port, and the registry that makes the LLM engine
 model-agnostic — port of ``ray_tpu/models/__init__.py``.  ``param_axes``
-(the logical sharding tree) waits for the port of ``parallel/``."""
+is each family's logical sharding tree, for ``parallel.shard_pytree``."""
 
 import dataclasses as _dataclasses
 from typing import Any as _Any, Callable as _Callable
 
-from .gpt2 import GPT2Config, gpt2_apply, gpt2_init, gpt2_loss  # noqa: F401
+from .gpt2 import (  # noqa: F401
+    GPT2Config,
+    gpt2_apply,
+    gpt2_hidden,
+    gpt2_init,
+    gpt2_loss,
+    gpt2_param_axes,
+)
 from .gpt2_decode import (  # noqa: F401
     gpt2_decode_multi,
     gpt2_decode_step,
@@ -18,6 +25,7 @@ from .llama import (  # noqa: F401
     llama_apply,
     llama_init,
     llama_loss,
+    llama_param_axes,
 )
 from .llama_decode import (  # noqa: F401
     llama_decode_step,
@@ -33,8 +41,9 @@ class ModelFamily:
 
     name: str
     init: _Callable  # (gen, cfg, device=None) -> ParamTree
-    apply: _Callable  # (params, tokens, cfg) -> logits
-    loss: _Callable  # (params, tokens, cfg, ...) -> scalar
+    apply: _Callable  # (params, tokens, cfg, mesh=None) -> logits
+    loss: _Callable  # (params, tokens, cfg, mesh=None, ...) -> scalar
+    param_axes: _Callable  # () -> logical sharding tree
     init_cache: _Callable  # (cfg, batch, max_len, device=None) -> cache
     prefill: _Callable  # (params, tokens, lengths, cache, cfg)
     decode_step: _Callable  # (params, tokens, pos, cache, cfg)
@@ -64,6 +73,7 @@ register_model_family(
         init=gpt2_init,
         apply=gpt2_apply,
         loss=gpt2_loss,
+        param_axes=gpt2_param_axes,
         init_cache=gpt2_init_cache,
         prefill=gpt2_prefill,
         decode_step=gpt2_decode_step,
@@ -76,6 +86,7 @@ register_model_family(
         init=llama_init,
         apply=llama_apply,
         loss=llama_loss,
+        param_axes=llama_param_axes,
         init_cache=llama_init_cache,
         prefill=llama_prefill,
         decode_step=llama_decode_step,

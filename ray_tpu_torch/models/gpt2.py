@@ -4,10 +4,19 @@ Parameters keep the JAX tree's layout (``wqkv [L, E, 3, H, D]``,
 ``wo [L, H, D, E]``, the unembedding tied to ``wte``), so each einsum below
 reads as its JAX counterpart.  bf16 activations and params with f32
 layernorm and softmax, as in the JAX package.  Attention is ``dense`` (the
-plain reference), ``dense_remat`` (the same, recomputed in backward) or
-``flash`` (the flash kernels on the card, forward and backward).  ``remat`` recomputes each block in backward
-(``torch.utils.checkpoint``, as ``jax.checkpoint`` does there); the named
-remat policies and the ring and Ulysses variants are not ported yet.
+plain reference), ``dense_remat`` (the same, recomputed in backward),
+``flash`` (the flash kernels on the card, forward and backward), or, under
+a mesh, ``ring`` (context parallel over the ``seq`` axis, each block on the
+flash kernels on the card) or ``ulysses`` (all-to-all over ``seq``).
+``remat`` recomputes each block in backward (``torch.utils.checkpoint``, as
+``jax.checkpoint`` does there); the named remat policies are not ported
+yet.
+
+``mesh=`` (a ``DeviceMesh`` of ``parallel.build_mesh``, parameters placed
+by ``parallel.shard_pytree`` with ``gpt2_param_axes()``) runs the model
+one rank a process, each on its local blocks (``parallel.spmd``), with
+the logical layouts of the JAX model's sharding constraints; with no mesh
+the path is the unsharded one.
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, dtype_of, resolve_device
 from ..ops.attention import flash_attention, reference_attention
+from ..parallel.sharding import with_logical_constraint as wlc
+from ..parallel.spmd import spmd
 from .params import ParamTree, normal
 
 
@@ -31,7 +42,7 @@ class GPT2Config:
     n_head: int = 12
     d_model: int = 768
     dtype: str = "bfloat16"
-    attention: str = "dense"  # dense | flash
+    attention: str = "dense"  # dense | flash | ring | ulysses
     remat: bool = False
     # "full" (and, as in JAX, any unknown value) recomputes the whole block
     # in backward.  The named policies of the JAX package (dots, dots_all,
@@ -97,6 +108,35 @@ def gpt2_init(gen: torch.Generator, cfg: GPT2Config,
     return ParamTree(tree)
 
 
+def gpt2_param_axes():
+    """Logical sharding axes per parameter (leading None = layer-stack
+    axis), as ``ray_tpu/models/gpt2.py:gpt2_param_axes``: the embedding
+    table's vocab axis is not sharded (the token gather runs along it)."""
+    return {
+        "wte": (None, "embed"),
+        "wpe": (None, "embed"),
+        "blocks": {
+            "ln1_g": (None, "norm"),
+            "ln1_b": (None, "norm"),
+            "wqkv": (None, "embed", None, "heads", "kv"),
+            "bqkv": (None, None, "heads", "kv"),
+            "wo": (None, "heads", "kv", "embed"),
+            "bo": (None, "norm"),
+            "ln2_g": (None, "norm"),
+            "ln2_b": (None, "norm"),
+            "wi": (None, "embed", "mlp"),
+            "bi": (None, "mlp"),
+            "wo2": (None, "mlp", "embed"),
+            "bo2": (None, "norm"),
+        },
+        "lnf_g": ("norm",),
+        "lnf_b": ("norm",),
+    }
+
+
+QKV_AXES = ("batch", "seq", "heads", "kv")
+
+
 def _layernorm(x, g, b, eps=1e-5):
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
@@ -110,7 +150,15 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _attention(q, k, v, cfg: GPT2Config):
+def _attention(q, k, v, cfg: GPT2Config, sp=spmd(None)):
+    if cfg.attention in ("ring", "ulysses"):
+        return seq_parallel_attention(q, k, v, cfg.attention, sp)
+    if sp.seq_size > 1:
+        # A local attention sees the whole sequence: gather seq around it.
+        full = ("batch", None, "heads", "kv")
+        o = _attention(*(sp.local(sp.dist(x, QKV_AXES), full)
+                         for x in (q, k, v)), cfg, spmd(None))
+        return sp.local(sp.dist(o, full), QKV_AXES)
     if cfg.attention == "dense_remat":
         # Dense attention whose [B, H, S, S] probabilities are recomputed
         # in backward instead of stored (``jax.checkpoint`` there).
@@ -119,46 +167,91 @@ def _attention(q, k, v, cfg: GPT2Config):
     if cfg.attention == "flash":
         return flash_attention(q, k, v, causal=True)
     if cfg.attention != "dense":
-        raise ValueError(f"attention {cfg.attention!r} is not ported yet")
+        raise ValueError(f"unknown attention {cfg.attention!r}")
     return reference_attention(q, k, v, causal=True)
 
 
-def _block(x, layer, cfg: GPT2Config):
-    y = _layernorm(x, layer["ln1_g"], layer["ln1_b"])
+def seq_parallel_attention(q, k, v, kind: str, sp):
+    """Ring or Ulysses attention on local [B, S, H, D] blocks laid out as
+    (batch, seq, heads, kv) over ``sp.mesh``; Ulysses runs the flash
+    kernels on CUDA tensors, as the ring does."""
+    if sp.mesh is None:
+        raise ValueError(f"{kind} attention requires a mesh")
+    from ..parallel.ring_attention import ring_attention
+    from ..parallel.ulysses import ulysses_attention
+
+    q, k, v = (wlc(sp.dist(x, QKV_AXES), QKV_AXES, sp.mesh, sp.rules)
+               for x in (q, k, v))
+    if kind == "ring":
+        o = ring_attention(q, k, v, sp.mesh, causal=True)
+    else:
+        attn = (flash_attention if q.device.type == "cuda"
+                else reference_attention)
+        o = ulysses_attention(q, k, v, sp.mesh, causal=True,
+                              attn_fn=lambda a, b, c: attn(a, b, c,
+                                                           causal=True))
+    return sp.local(o, QKV_AXES)
+
+
+def _block(x, layer, cfg: GPT2Config, sp=spmd(None)):
+    # Local layouts: x and y (batch, seq, act_embed), q/k/v (batch, seq,
+    # heads, kv), hdn (batch, seq, mlp) — the JAX block's constraints.
+    y = sp.enter_tp(_layernorm(x, layer["ln1_g"], layer["ln1_b"]))
     qkv = torch.einsum("bse,ethd->bsthd", y, layer["wqkv"]) + layer["bqkv"]
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    o = _attention(q, k, v, cfg)
-    x = x + (torch.einsum("bshd,hde->bse", o, layer["wo"])
+    o = _attention(q, k, v, cfg, sp)
+    x = x + (sp.exit_tp(torch.einsum("bshd,hde->bse", o, layer["wo"]))
              + layer["bo"]).to(x.dtype)
-    y = _layernorm(x, layer["ln2_g"], layer["ln2_b"])
+    y = sp.enter_tp(_layernorm(x, layer["ln2_g"], layer["ln2_b"]))
     hdn = _gelu(torch.einsum("bse,ef->bsf", y, layer["wi"]) + layer["bi"])
-    return x + (torch.einsum("bsf,fe->bse", hdn, layer["wo2"])
+    return x + (sp.exit_tp(torch.einsum("bsf,fe->bse", hdn, layer["wo2"]))
                 + layer["bo2"]).to(x.dtype)
 
 
 REMAT_POLICIES_NOT_PORTED = ("dots", "dots_all", "matmuls", "save_mlp")
 
 
-def gpt2_hidden(params: ParamTree, tokens, cfg: GPT2Config):
-    """tokens: [B, S] int → final layernormed hidden states [B, S, E]."""
+def _hidden(params: ParamTree, tokens, cfg: GPT2Config, sp):
+    """Local [B, S] token ids → (this rank's final hidden block, the
+    embedding table in its compute layout, for the unembedding)."""
     if cfg.remat and cfg.remat_policy in REMAT_POLICIES_NOT_PORTED:
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r} is not ported yet")
     s = tokens.shape[1]
-    x = params["wte"][tokens] + params["wpe"][:s][None]
+    # Gather from a replicated view of the table (the JAX model's
+    # P(None, "act_embed")): one all-gather of wte, then a local lookup.
+    wte = sp.param(params["wte"], (None, "act_embed"))
+    wpe = sp.param(params["wpe"], (None, "act_embed"))
+    start = sp.seq_start(s)
+    x = wte[tokens] + wpe[start:start + s][None]
+    layer_params = sp.layers(params.blocks, gpt2_param_axes()["blocks"])
     for l in range(cfg.n_layer):
+        layer = layer_params(l)
         if cfg.remat:
-            x = checkpoint(_block, x, params.layer(l), cfg,
-                           use_reentrant=False)
+            x = checkpoint(_block, x, layer, cfg, sp, use_reentrant=False)
         else:
-            x = _block(x, params.layer(l), cfg)
-    return _layernorm(x, params["lnf_g"], params["lnf_b"])
+            x = _block(x, layer, cfg, sp)
+    x = _layernorm(x, sp.param(params["lnf_g"], ("norm",)),
+                   sp.param(params["lnf_b"], ("norm",)))
+    return x, wte
 
 
-def gpt2_apply(params: ParamTree, tokens, cfg: GPT2Config):
-    """tokens: [B, S] int → logits [B, S, V]."""
-    x = gpt2_hidden(params, tokens, cfg)
-    return torch.einsum("bse,ve->bsv", x, params["wte"])
+def gpt2_hidden(params: ParamTree, tokens, cfg: GPT2Config, mesh=None):
+    """tokens: [B, S] int → final layernormed hidden states [B, S, E] (a
+    DTensor laid out (batch, seq, act_embed) under a mesh)."""
+    sp = spmd(mesh)
+    x, _ = _hidden(params, sp.tokens(tokens), cfg, sp)
+    return sp.dist(x, ("batch", "seq", "act_embed"))
+
+
+def gpt2_apply(params: ParamTree, tokens, cfg: GPT2Config, mesh=None):
+    """tokens: [B, S] int → logits [B, S, V] (a DTensor laid out (batch,
+    seq, vocab) under a mesh)."""
+    sp = spmd(mesh)
+    x, wte = _hidden(params, sp.tokens(tokens), cfg, sp)
+    logits = torch.einsum("bse,ve->bsv", x, wte)
+    return wlc(sp.dist(logits, ("batch", "seq", "act_embed")),
+               ("batch", "seq", "vocab"), mesh)
 
 
 def _ce_from_logits(logits, targets, z_loss: float):
@@ -178,30 +271,35 @@ def _chunk_nll(wte, x_c, t_c, z_loss: float):
     return _ce_from_logits(logits, t_c, z_loss)
 
 
-def gpt2_loss(params: ParamTree, tokens, cfg: GPT2Config,
+def gpt2_loss(params: ParamTree, tokens, cfg: GPT2Config, mesh=None,
               z_loss: float = 0.0, ce_chunks: int = 0):
     """Next-token cross-entropy.  tokens: [B, S+1] (inputs = [:, :-1]).
 
     ``ce_chunks > 0`` evaluates the unembedding + CE in that many
     sequence chunks, each recomputed in backward, so peak memory holds one
-    [B, S/c, V] logits block instead of [B, S, V].
+    [B, S/c, V] logits block instead of [B, S, V].  Under a mesh each rank
+    sums the CE of its block and the sums meet in one psum; the result is
+    the global mean on every rank.
     """
+    sp = spmd(mesh)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x = gpt2_hidden(params, inputs, cfg)
-    b, s, _ = x.shape
-    if ce_chunks > 1 and s % ce_chunks != 0:
+    b, s = inputs.shape
+    x, wte = _hidden(params, sp.tokens(inputs), cfg, sp)
+    targets = sp.tokens(targets)
+    s_local = x.shape[1]
+    if ce_chunks > 1 and s_local % ce_chunks != 0:
         raise ValueError(
             f"ce_chunks={ce_chunks} must divide the sequence length {s} "
             "(silently falling back would materialize the full [B,S,V] "
             "logits the caller asked to avoid)"
         )
     if ce_chunks <= 1:
-        return _chunk_nll(params["wte"], x, targets, z_loss) / (b * s)
-    c = s // ce_chunks
+        return sp.total(_chunk_nll(wte, x, targets, z_loss)) / (b * s)
+    c = s_local // ce_chunks
     total = x.new_zeros((), dtype=torch.float32)
     for i in range(ce_chunks):
         sl = slice(i * c, (i + 1) * c)
-        total = total + checkpoint(_chunk_nll, params["wte"], x[:, sl],
+        total = total + checkpoint(_chunk_nll, wte, x[:, sl],
                                    targets[:, sl], z_loss,
                                    use_reentrant=False)
-    return total / (b * s)
+    return sp.total(total) / (b * s)

@@ -3,11 +3,14 @@
 RMSNorm + interleaved RoPE + GQA + SwiGLU, parameters in the JAX tree's
 layout (``wq [L, E, H, D]``, ``wk/wv [L, E, Hkv, D]``, ``wo [L, H, D, E]``),
 bf16 with f32 norms and softmax.  Attention is ``dense`` (the plain
-reference) or ``flash`` (the flash kernels on the card, forward and
-backward; k/v are repeated to H heads first, so the backward of
-``repeat_interleave`` sums each group's gradient per kv head).  ``remat``
-recomputes each block in backward; the sharded variants are not ported
-yet.
+reference), ``flash`` (the flash kernels on the card, forward and
+backward), or, under a mesh, ``ring`` or ``ulysses`` over the ``seq`` axis
+(``models.gpt2.seq_parallel_attention``).  k/v are repeated to H heads
+first, so every attention sees the KV heads after the GQA repeat, as in
+JAX, and the backward of ``repeat_interleave`` sums each group's gradient
+per kv head.  ``remat`` recomputes each block in backward.  ``mesh=`` runs
+the model per rank on its local blocks as ``models.gpt2`` does
+(``parallel.spmd``), parameters placed with ``llama_param_axes()``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, dtype_of, resolve_device
-from ..ops.attention import flash_attention, reference_attention
+from ..parallel.sharding import with_logical_constraint as wlc
+from ..parallel.spmd import spmd
+from .gpt2 import _attention as _gpt2_attention
 from .params import ParamTree, normal
 
 
@@ -35,7 +40,7 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
-    attention: str = "dense"  # dense | flash
+    attention: str = "dense"  # dense | flash | ring | ulysses
     remat: bool = False
 
     @property
@@ -106,6 +111,28 @@ def llama_init(gen: torch.Generator, cfg: LlamaConfig,
     return ParamTree(tree)
 
 
+def llama_param_axes():
+    """Logical sharding axes (leading None = layer-stack axis), as
+    ``ray_tpu/models/llama.py:llama_param_axes``: the embedding table's
+    vocab axis unsharded, ``lm_head``'s sharded over vocab."""
+    return {
+        "wte": (None, "embed"),
+        "blocks": {
+            "rms1": (None, "norm"),
+            "wq": (None, "embed", "heads", "kv"),
+            "wk": (None, "embed", "heads", "kv"),
+            "wv": (None, "embed", "heads", "kv"),
+            "wo": (None, "heads", "kv", "embed"),
+            "rms2": (None, "norm"),
+            "w_gate": (None, "embed", "mlp"),
+            "w_up": (None, "embed", "mlp"),
+            "w_down": (None, "mlp", "embed"),
+        },
+        "rms_f": ("norm",),
+        "lm_head": ("vocab", "embed"),
+    }
+
+
 def _rmsnorm(x, g, eps: float):
     x32 = x.float()
     scale = torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + eps)
@@ -132,23 +159,18 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
-def _attention(q, k, v, cfg: LlamaConfig):
-    if cfg.attention == "flash":
-        return flash_attention(q, k, v, causal=True)
-    if cfg.attention != "dense":
-        raise ValueError(f"attention {cfg.attention!r} is not ported yet")
-    return reference_attention(q, k, v, causal=True)
-
-
-def _swiglu(y, layer):
+def _swiglu(y, layer, sp=spmd(None)):
     gate = F.silu(torch.einsum("bse,ef->bsf", y, layer["w_gate"]))
     up = torch.einsum("bse,ef->bsf", y, layer["w_up"])
-    return torch.einsum("bsf,fe->bse", gate * up, layer["w_down"])
+    return sp.exit_tp(torch.einsum("bsf,fe->bse", gate * up,
+                                   layer["w_down"]))
 
 
-def _block(x, layer, positions, cfg: LlamaConfig):
+def _block(x, layer, positions, cfg: LlamaConfig, sp=spmd(None)):
+    # Local layouts as the JAX block's constraints: x (batch, seq,
+    # act_embed), q/k/v (batch, seq, heads, kv), gate*up (batch, seq, mlp).
     groups = cfg.n_head // cfg.n_kv_head
-    y = _rmsnorm(x, layer["rms1"], cfg.rms_eps)
+    y = sp.enter_tp(_rmsnorm(x, layer["rms1"], cfg.rms_eps))
     q = torch.einsum("bse,ehd->bshd", y, layer["wq"])
     k = torch.einsum("bse,ekd->bskd", y, layer["wk"])
     v = torch.einsum("bse,ekd->bskd", y, layer["wv"])
@@ -157,36 +179,62 @@ def _block(x, layer, positions, cfg: LlamaConfig):
     # GQA: repeat kv heads across their query-head group.
     k = torch.repeat_interleave(k, groups, dim=2)
     v = torch.repeat_interleave(v, groups, dim=2)
-    o = _attention(q, k, v, cfg)
-    x = x + torch.einsum("bshd,hde->bse", o, layer["wo"]).to(x.dtype)
-    y = _rmsnorm(x, layer["rms2"], cfg.rms_eps)
-    return x + _swiglu(y, layer).to(x.dtype)
+    o = _gpt2_attention(q, k, v, cfg, sp)
+    x = x + sp.exit_tp(torch.einsum("bshd,hde->bse", o,
+                                    layer["wo"])).to(x.dtype)
+    y = sp.enter_tp(_rmsnorm(x, layer["rms2"], cfg.rms_eps))
+    return x + _swiglu(y, layer, sp).to(x.dtype)
 
 
-def llama_apply(params: ParamTree, tokens, cfg: LlamaConfig):
-    """tokens: [B, S] int → logits [B, S, V]."""
+def _logits(params: ParamTree, tokens, cfg: LlamaConfig, sp):
+    """Local [B, S] token ids → this rank's [B, S, V] logits block (vocab
+    whole: every model rank computes it)."""
     s = tokens.shape[1]
-    x = params["wte"][tokens].to(dtype_of(cfg.dtype))
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    # Gather from a replicated view of the table (P(None, "act_embed")).
+    wte = sp.param(params["wte"], (None, "act_embed"))
+    x = wte[tokens].to(dtype_of(cfg.dtype))
+    start = sp.seq_start(s)
+    positions = torch.arange(start, start + s, dtype=torch.int32,
+                             device=x.device)
+    layer_params = sp.layers(params.blocks, llama_param_axes()["blocks"])
     for l in range(cfg.n_layer):
+        layer = layer_params(l)
         if cfg.remat:
-            x = checkpoint(_block, x, params.layer(l), positions, cfg,
+            x = checkpoint(_block, x, layer, positions, cfg, sp,
                            use_reentrant=False)
         else:
-            x = _block(x, params.layer(l), positions, cfg)
-    x = _rmsnorm(x, params["rms_f"], cfg.rms_eps)
-    return torch.einsum("bse,ve->bsv", x, params["lm_head"])
+            x = _block(x, layer, positions, cfg, sp)
+    x = _rmsnorm(x, sp.param(params["rms_f"], ("norm",)), cfg.rms_eps)
+    return torch.einsum("bse,ve->bsv", x,
+                        sp.param(params["lm_head"], (None, "act_embed")))
 
 
-def llama_loss(params: ParamTree, tokens, cfg: LlamaConfig,
+def llama_apply(params: ParamTree, tokens, cfg: LlamaConfig, mesh=None):
+    """tokens: [B, S] int → logits [B, S, V] (a DTensor laid out (batch,
+    seq, vocab) under a mesh)."""
+    sp = spmd(mesh)
+    logits = _logits(params, sp.tokens(tokens), cfg, sp)
+    return wlc(sp.dist(logits, ("batch", "seq", "act_embed")),
+               ("batch", "seq", "vocab"), mesh)
+
+
+def llama_loss(params: ParamTree, tokens, cfg: LlamaConfig, mesh=None,
                z_loss: float = 0.0):
     """Next-token cross-entropy; tokens [B, S+1].  The logits are upcast
-    to f32 before the logsumexp, as in ``ray_tpu/models/llama.py:214-224``."""
+    to f32 before the logsumexp, as in ``ray_tpu/models/llama.py:214-224``;
+    under a mesh the per-rank sums meet in one psum."""
+    sp = spmd(mesh)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = llama_apply(params, inputs, cfg).float()
+    n = inputs.numel()
+    logits = _logits(params, sp.tokens(inputs), cfg, sp).float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
-    nll = (logz - gold).mean()
+    gold = torch.gather(logits, -1, sp.tokens(targets)[..., None])[..., 0]
+    if mesh is None:
+        mean = torch.mean
+    else:
+        def mean(x):
+            return sp.total(x.sum()) / n
+    nll = mean(logz - gold)
     if z_loss > 0:
-        nll = nll + z_loss * (logz ** 2).mean()
+        nll = nll + z_loss * mean(logz ** 2)
     return nll

@@ -86,8 +86,8 @@ def _masked_scores(q, k, causal):
 
 def reference_attention(q, k, v, *, causal: bool = True):
     """q: [B, Sq, H, D]; k/v: [B, Sk, H, D] → [B, Sq, H, D].  (The JAX
-    version's q/k offsets and scale override serve ring attention, which
-    is not ported yet.)"""
+    version's q/k offsets and scale override serve its ring attention;
+    the port's ring has its own block step, ``parallel.ring_attention``.)"""
     scores = _masked_scores(q, k, causal)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive ray_tpu_torch's serving and training paths, its runtime, its Data
 layer, its collective layer and Train, its DAGs, Tune and jobs, its
-pipeline-parallel trainer, its autoscaler and its parallel layer (ring and
-Ulysses attention, the sharded train step) on one NVIDIA GPU and check
-them.
+pipeline-parallel trainer, its autoscaler, its parallel layer (ring and
+Ulysses attention, the sharded train step) and its vision and MoE models
+on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -21,8 +21,10 @@ Phases (none is caught: any failure exits non-zero):
      4 query heads per kv head; GPT-2 small: one, on strided slices of the
      fused qkv), the flash backward kernels (dQ, dK/dV) at GPT-2 small's
      training shape (strided and contiguous), TinyLlama's width, S=1000
-     and non-causal S=512, and the forward and backward at D=128 (S=1000
-     causal, S=512 not); bf16 at a tolerance of 2e-2 (relative to the
+     and non-causal S=512, the forward and backward at D=128 (S=1000
+     causal, S=512 not), and both at ViT-B/16's attention (B=32 x S=197,
+     no multiple of the 64-row tile, H=12, not causal, timed in bf16);
+     bf16 at a tolerance of 2e-2 (relative to the
      largest plain gradient for the backward) and f32 at 1e-4.  Each with
      its time, the plain version's time, one PyTorch library call of the
      same function (F.scaled_dot_product_attention forward or backward, a
@@ -192,6 +194,29 @@ Phases (none is caught: any failure exits non-zero):
      launches a step, ms a step and tokens/s of both and phase 5's.
      ``tools/parallel_cards.py`` runs 14a and 14b as a world of one
      process a card.
+ 15. the vision models and the MoE LM: (a) under a fresh
+     ``ray_tpu_torch.init(num_cpus=4)``, one Serve replica leasing the
+     card runs ``vit_apply`` over each ``@serve.batch`` (at most 32
+     images, 10 ms wait): first ViT-B/16's width at 2 layers in f32, 64
+     requests, every logit row within 1e-4 of ``vit_apply`` here; then
+     ViT-B/16 (224², patch 16, 12 layers, bf16, flash attention, seeded
+     weights), 256 seeded images one a request from 16 client threads:
+     every answer a class of 1000, a batch above 1, 12 flash launches a
+     batch and no call of the plain attention in the replica; images/s,
+     request latency, batch sizes, the replica's start (deploy to first
+     answer) and the share of top-1 classes equal to ``vit_apply`` here;
+     (b) ResNet-50 (bf16, f32 batch-norm statistics) in one
+     ``TorchTrainer`` worker leasing the card (NCCL, world 1): B=128
+     seeded 224² images, SGD with momentum 0.9, 3 warm-up and 10 timed
+     steps: the loss finite and falling, every running statistic moved
+     in train mode and left as it was in eval mode; images/s, step ms,
+     peak memory, and the step's bound (FLOPs reckoned from the shapes
+     at 989 TFLOP/s); (c) the MoE LM (12 layers, d_model 768, 8 experts,
+     top-2, bf16, flash attention) trained by phase 5's harness at B=8 x
+     S=1024, AdamW, 2 warm-up and 5 timed steps: the loss finite and
+     falling, 12/12/12 launches a step, the aux loss above 0; tokens/s
+     and peak memory; then phase 6's parity at 2 layers (f32 loss and
+     every leaf at 1e-4, bf16 launch by launch).
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -212,6 +237,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -264,6 +290,7 @@ from ray_tpu_torch.ops.attention import (  # noqa: E402
     reference_flash_fwd,
     reference_lse,
 )
+from ray_tpu_torch.serve.batching import batch as serve_batch  # noqa: E402
 from ray_tpu_torch.ops.decode_attention import (  # noqa: E402
     decode_attention,
     reference_decode_attention,
@@ -950,12 +977,13 @@ def profile_train_step(step):
 
 
 def train(cfg, batch: int, seq: int, warmup: int, steps: int,
-          lr: float = 1e-4):
+          lr: float = 1e-4, fam=None):
     """Train ``cfg`` on one seeded batch (the shape and step of
     ``bench.py:bench_gpt2_train``): ``warmup`` steps, then ``steps`` timed
     ones, then one profiled step.  Asserts finite, falling loss and the
-    launch counts of every step."""
-    fam = model_family(cfg)
+    launch counts of every step.  ``fam`` (``init``, ``loss``) stands in
+    for the registered family of a model that has none (the MoE LM)."""
+    fam = fam or model_family(cfg)
     params = fam.init(torch.Generator("cuda").manual_seed(SEED + 4), cfg)
     params.requires_grad_(True)
     rng = np.random.default_rng(SEED + 5)
@@ -1047,11 +1075,11 @@ def grads_of(fam, params, tokens, cfg):
                            for n, p in params.named_parameters()}
 
 
-def train_parity(cfg, batch: int, seq: int):
+def train_parity(cfg, batch: int, seq: int, fam=None):
     """Loss and every gradient leaf of one batch, through the kernels
     (each launch also held against its plain version on its own inputs)
-    and through the plain versions."""
-    fam = model_family(cfg)
+    and through the plain versions.  ``fam`` as in ``train``."""
+    fam = fam or model_family(cfg)
     params = fam.init(torch.Generator("cuda").manual_seed(SEED + 6), cfg)
     params.requires_grad_(True)
     rng = np.random.default_rng(SEED + 7)
@@ -4832,6 +4860,410 @@ def report_parallel_phase(card: str, rep: dict, phase5: dict) -> None:
     print("parallel " + json.dumps(rep), flush=True)
 
 
+# ----------------------------------------------------------------- phase 15
+# 15a: ViT-B/16 on one replica leasing the card; 16 client threads send
+# 256 seeded images one a request (bf16, full depth), after 64 at f32 and
+# 2 layers for the logit parity.
+VIT_SEED = SEED + 160
+VIT_REQUESTS = (256, 64)  # bf16 full depth, f32 2 layers
+VIT_CLIENTS = 16
+VIT_MAX_BATCH, VIT_WAIT_S = 32, 0.01
+# 15b: ResNet-50 in one TorchTrainer worker leasing the card.
+RESNET_SEED = SEED + 170
+RESNET_SHAPE = (128, 224, 3, 10)  # batch, image size, warm-up and timed steps
+RESNET_LR = 0.05
+# 15c: the MoE LM's train step: B x S, warm-up and timed steps.
+MOE_SEED = SEED + 180
+MOE_SHAPE = (8, 1024, 2, 5)
+
+
+class _ViTReplica:
+    """15a's replica: ``vit_apply`` over each ``@serve.batch`` of images on
+    the leased card, recording each batch's size, flash launches, calls of
+    the plain attention (which must stay 0) and device ms."""
+
+    def __init__(self, cfg_kw: dict, seed: int, device=None):
+        from ray_tpu_torch.models import ViTConfig, vit, vit_init
+
+        self.device = resolve_device(device)
+        self.cfg = ViTConfig(**cfg_kw)
+        gen = torch.Generator(self.device).manual_seed(seed)
+        self.params = vit_init(gen, self.cfg, device=self.device)
+        self.plain_calls = 0
+        plain = vit.reference_attention
+
+        def counted_plain(*args, **kwargs):
+            self.plain_calls += 1
+            return plain(*args, **kwargs)
+
+        vit.reference_attention = counted_plain
+        self.batches = []
+
+    @serve_batch(max_batch_size=VIT_MAX_BATCH, batch_wait_timeout_s=VIT_WAIT_S)
+    async def classify(self, images):
+        from ray_tpu_torch.models import vit_apply
+
+        x = torch.from_numpy(np.stack(images)).to(self.device)
+        before = (flash_attention.launches, self.plain_calls)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = vit_apply(self.params, x, self.cfg)
+        rows = logits.float().cpu().numpy()  # synchronises
+        self.batches.append({
+            "size": len(images), "ms": (time.perf_counter() - t0) * 1e3,
+            "flash": flash_attention.launches - before[0],
+            "plain": self.plain_calls - before[1]})
+        return list(rows)
+
+    async def __call__(self, image):
+        return await self.classify(image)
+
+    def stats(self, reset: bool = False) -> dict:
+        out = {"batches": self.batches,
+               "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+               "launches": flash_attention.launches}
+        if reset:
+            self.batches = []
+            flash_attention.launches = 0
+        return out
+
+
+def _clients(send, items, n: int):
+    """``send(item)`` for every item from ``n`` client threads; returns
+    (results, per-request seconds, wall seconds)."""
+    def timed(item):
+        t = time.perf_counter()
+        out = send(item)
+        return out, time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(n) as pool:
+        done = list(pool.map(timed, items))
+    return [o for o, _ in done], [t for _, t in done], \
+        time.perf_counter() - t0
+
+
+def _vit_images(n: int, size: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((size, size, 3)).astype(np.float32)
+            for _ in range(n)]
+
+
+def vit_serve(rt, serve, cfg, n_requests: int, device) -> dict:
+    """One replica of ``cfg`` leasing the card; ``n_requests`` seeded
+    images, one a request, from ``VIT_CLIENTS`` threads after one warm-up
+    request.  Gates: every answer a class of ``cfg``, a batch above 1, the
+    flash forward ``n_layer`` times a batch and the plain attention never.
+    Returns the replica's logit rows with the readings."""
+    from ray_tpu_torch.models import vit_apply, vit_init
+
+    wait_card_free(rt)
+    dep = serve.deployment(
+        _ViTReplica, name="ViTReplica",
+        ray_actor_options={"num_cpus": 0, "num_gpus": 1},
+        max_ongoing_requests=2 * VIT_MAX_BATCH)
+    images = _vit_images(n_requests, cfg.image_size, VIT_SEED + 1)
+    t0 = time.perf_counter()
+    handle = serve.run(dep.bind(dataclasses.asdict(cfg), VIT_SEED,
+                                "cpu" if device == "cpu" else None))
+    try:
+        # The replica's start: deployed, weights made, first answer back.
+        handle.remote(images[0]).result(timeout=600)
+        start_s = time.perf_counter() - t0
+        handle.stats.remote(reset=True).result(timeout=60)
+        rows, lat, wall = _clients(
+            lambda img: handle.remote(img).result(timeout=600), images,
+            VIT_CLIENTS)
+        st = handle.stats.remote().result(timeout=60)
+    finally:
+        serve.delete("ViTReplica")
+    sizes = [b["size"] for b in st["batches"]]
+    classes = [int(np.argmax(r)) for r in rows]
+    problems = []
+    if sum(sizes) != n_requests or max(sizes) <= 1:
+        problems.append(f"batch sizes {sizes}")
+    if any(b["flash"] != cfg.n_layer or b["plain"] for b in st["batches"]):
+        problems.append(f"attention a batch {st['batches']}, want "
+                        f"{cfg.n_layer} flash launches and no plain call")
+    if not all(0 <= c < cfg.num_classes for c in classes) or any(
+            not np.isfinite(r).all() for r in rows):
+        problems.append("an answer is no class")
+    if device != "cpu" and st["visible"] != "0":
+        problems.append(f"replica lease {st['visible']!r}")
+    if problems:
+        raise AssertionError(f"15a {cfg.dtype} {cfg.n_layer} layers: "
+                             f"{problems}")
+    # The same weights and images through vit_apply here, VIT_MAX_BATCH
+    # at a time.
+    dev = resolve_device(device)
+    params = vit_init(torch.Generator(dev).manual_seed(VIT_SEED), cfg,
+                      device=dev)
+    local = []
+    with torch.no_grad():
+        for i in range(0, n_requests, VIT_MAX_BATCH):
+            x = torch.from_numpy(np.stack(images[i:i + VIT_MAX_BATCH]))
+            local.append(vit_apply(params, x.to(dev), cfg).float().cpu()
+                         .numpy())
+    local = np.concatenate(local)
+    del params
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {"requests": n_requests, "clients": VIT_CLIENTS,
+            "images_per_s": n_requests / wall, "wall_s": wall,
+            "latency_s": _percentiles(lat), "replica_start_s": start_s,
+            "batch_sizes": sizes,
+            "batch_ms": _percentiles([b["ms"] for b in st["batches"]]),
+            "launches": st["launches"], "launches_per_batch": cfg.n_layer,
+            "rows": np.stack(rows), "local_rows": local,
+            "top1_agree": float(np.mean(np.argmax(local, -1) == classes))}
+
+
+def resnet_flops(cfg, batch: int, size: int) -> dict:
+    """Multiply-adds of one forward of ``cfg`` over ``batch`` images of
+    ``size``, reckoned from the convolutions' and the head's shapes, and
+    the FLOPs of a train step: forward, and backward's input and weight
+    gradients (the stem's input gradient is not taken)."""
+    from ray_tpu_torch.models.resnet import _layout
+
+    def out(n, s):
+        return -(-n // s)
+
+    hw = out(size, 2)  # stem
+    macs = stem = hw * hw * 7 * 7 * 3 * 64
+    hw = out(hw, 2)  # max-pool
+    blocks, cin = _layout(cfg)
+    for _, _, stride, convs in blocks:
+        o = out(hw, stride)
+        for name, kh, kw, ci, co in convs:
+            # The bottleneck's conv1 runs at the block's input size; every
+            # other convolution of the block at its output size.
+            at = hw if (name == "conv1" and cfg.bottleneck) else o
+            macs += at * at * kh * kw * ci * co
+        hw = o
+    macs += cin * cfg.num_classes
+    per_image = macs
+    return {"macs_per_image": per_image,
+            "train_flops": 2 * batch * (3 * per_image - stem)}
+
+
+def _resnet_loop(config):
+    """15b's ``train_loop_per_worker``: ResNet on the leased card, one
+    seeded batch, SGD with momentum; each step's loss reported, then the
+    readings and the train/eval checks of the running statistics."""
+    import os
+
+    import torch
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch.device import resolve_device
+    from ray_tpu_torch.models import (
+        ResNetConfig, resnet_apply, resnet_init, resnet_loss,
+    )
+
+    ctx = train.get_context()
+    device = resolve_device(config["device"])
+    cuda = device.type == "cuda"
+    cfg = ResNetConfig(**{k: tuple(map(tuple, v)) if k == "stages" else v
+                          for k, v in config["cfg"].items()})
+    gen = torch.Generator(device).manual_seed(config["seed"])
+    params, state = resnet_init(gen, cfg, device=device)
+    params.requires_grad_(True)
+    b, size = config["batch"], config["size"]
+    images = torch.randn((b, size, size, 3), generator=gen, device=device)
+    labels = torch.randint(0, cfg.num_classes, (b,), generator=gen,
+                           device=device)
+    opt = torch.optim.SGD(params.parameters(), lr=config["lr"],
+                          momentum=0.9)
+    init_state = [t.clone() for t in _leaves(state)]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, t_timed = [], None
+    for step in range(config["warmup"] + config["steps"]):
+        if step == config["warmup"]:
+            sync()
+            t_timed = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss, state = resnet_loss(params, state, images, labels, cfg)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+        train.report({"step": step})
+    sync()
+    step_ms = (time.perf_counter() - t_timed) / config["steps"] * 1e3
+    losses = [float(x) for x in losses]
+    moved = [not torch.equal(a, b) for a, b in zip(init_state,
+                                                    _leaves(state))]
+    with torch.no_grad():
+        logits, eval_state = resnet_apply(params, state, images, cfg,
+                                          train=False)
+    fixed = all(a is b for a, b in zip(_leaves(state), _leaves(eval_state)))
+    train.report({
+        "losses": losses, "step_ms": step_ms,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda
+        else None,
+        "stats_moved": sum(moved), "stats": len(moved),
+        "stats_f32": all(t.dtype == torch.float32 for t in _leaves(state)),
+        "eval_state_fixed": fixed,
+        "eval_logits_finite": bool(torch.isfinite(logits).all()),
+        "params_bf16": all(p.dtype == torch.bfloat16
+                           for p in params.parameters()),
+        "n_params": sum(p.numel() for p in params.parameters()),
+        "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "backend": ctx.backend})
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def resnet_trainer(rt, cfg, shape, device) -> dict:
+    """15b: ``_resnet_loop`` in one ``TorchTrainer`` worker leasing the
+    whole card (NCCL, world 1; gloo in a rehearsal on the CPU)."""
+    import ray_tpu_torch.train as rtrain
+
+    batch, size, warmup, steps = shape
+    wait_card_free(rt)
+    config = {"cfg": dataclasses.asdict(cfg), "seed": RESNET_SEED,
+              "batch": batch, "size": size, "warmup": warmup,
+              "steps": steps, "lr": RESNET_LR, "device": device}
+    t0 = time.perf_counter()
+    result = rtrain.TorchTrainer(
+        _resnet_loop, train_loop_config=config,
+        scaling_config=rtrain.ScalingConfig(num_workers=1, use_gpu=True,
+                                            gpus_per_worker=1.0),
+        run_config=rtrain.RunConfig(name="phase15", storage_path=tempfile
+                                    .mkdtemp(prefix="chip_smoke_resnet_")),
+        backend=rtrain.TorchBackend("gloo" if device == "cpu" else None),
+    ).fit()
+    if result.error is not None:
+        raise AssertionError(f"15b fit failed: {result.error!r}")
+    m = result.metrics
+    losses = m["losses"]
+    backend = "gloo" if device == "cpu" else "nccl"
+    problems = []
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}")
+    if m["stats_moved"] != m["stats"] or not m["stats_f32"]:
+        problems.append(f"train mode moved {m['stats_moved']} of "
+                        f"{m['stats']} statistics (f32: {m['stats_f32']})")
+    if not (m["eval_state_fixed"] and m["eval_logits_finite"]):
+        problems.append("eval mode changed the statistics or gave "
+                        "non-finite logits")
+    if not m["params_bf16"] or m["backend"] != backend or m.get(
+            "torch_backend") != backend or (device != "cpu"
+                                           and m["visible"] != "0"):
+        problems.append(f"worker {m}")
+    if problems:
+        raise AssertionError(f"15b: {problems}")
+    fl = resnet_flops(cfg, batch, size)
+    bound_ms = fl["train_flops"] / BF16_FLOPS * 1e3
+    return {"batch": batch, "image_size": size, "warmup_steps": warmup,
+            "timed_steps": steps, "losses": losses, "step_ms": m["step_ms"],
+            "images_per_s": batch / m["step_ms"] * 1e3,
+            "peak_mem_gb": m["peak_mem_gb"], "n_params": m["n_params"],
+            "macs_per_image": fl["macs_per_image"],
+            "train_flops": fl["train_flops"], "bound_ms": bound_ms,
+            "bound_by": "operations",
+            "bound_share": bound_ms / m["step_ms"],
+            "stats_moved": m["stats_moved"], "fit_s":
+                time.perf_counter() - t0}
+
+
+def _moe_family():
+    from ray_tpu_torch.models import moe_init, moe_loss
+
+    return types.SimpleNamespace(init=moe_init, loss=moe_loss)
+
+
+def moe_train(cfg, shape) -> dict:
+    """15c: the MoE LM's train step on the card (``train``, phase 5's
+    harness: seeded tokens, AdamW, launch counts every step, a profiled
+    step), then the aux loss of its initial weights on its batch."""
+    from ray_tpu_torch.models import moe_apply, moe_init
+
+    batch, seq, warmup, steps = shape
+    rep = train(cfg, batch, seq, warmup, steps, fam=_moe_family())
+    # The aux loss on train()'s initial weights and batch (its seeds).
+    params = moe_init(torch.Generator("cuda").manual_seed(SEED + 4), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (batch, seq + 1))).cuda()
+    with torch.no_grad():
+        _, aux = moe_apply(params, tokens[:, :-1], cfg)
+    rep["aux"] = aux.item()
+    if not rep["aux"] > 0:
+        raise AssertionError(f"15c: aux loss {rep['aux']}")
+    del params
+    torch.cuda.empty_cache()
+    return rep
+
+
+def vision_moe_phase(device="cuda", vit_cfg=None, vit_f32_cfg=None,
+                     vit_requests=VIT_REQUESTS, resnet_cfg=None,
+                     resnet_shape=RESNET_SHAPE, init_kwargs=None) -> dict:
+    """Phase 15 (a) and (b) under a fresh ``ray_tpu_torch.init(num_cpus=4)``:
+    ViT-B/16 served in batches, then ResNet-50 in a ``TorchTrainer``.
+    Every process it starts is stopped before it returns.  (c) runs in
+    this process (``moe_train``, ``train_parity``)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models import ResNetConfig, ViTConfig
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    vit_cfg = vit_cfg or ViTConfig.b16(attention="flash")
+    vit_f32_cfg = vit_f32_cfg or ViTConfig.b16(attention="flash", n_layer=2,
+                                               dtype="float32")
+    resnet_cfg = resnet_cfg or ResNetConfig.resnet50()
+    rt.init(num_cpus=4, **(init_kwargs or {}))
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"detected {rt.cluster_resources()}")
+        f32 = vit_serve(rt, serve, vit_f32_cfg, vit_requests[1], device)
+        err = float(np.abs(f32["rows"] - f32["local_rows"]).max())
+        if not np.allclose(f32["rows"], f32["local_rows"], rtol=TOL_F32,
+                           atol=TOL_F32):
+            raise AssertionError(f"15a f32: replica logits differ from "
+                                 f"vit_apply here by up to {err}")
+        f32["max_abs_err"] = err
+        bf16 = vit_serve(rt, serve, vit_cfg, vit_requests[0], device)
+        rep = {"vit_f32": f32, "vit": bf16}
+        rep["resnet"] = resnet_trainer(rt, resnet_cfg, resnet_shape, device)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    for key in ("vit_f32", "vit"):
+        del rep[key]["rows"], rep[key]["local_rows"]
+    return rep
+
+
+def report_vision_moe_phase(card: str, rep: dict) -> None:
+    """Phase 15's readings: one line of numbers, then the report as JSON."""
+    vit, rn, moe = rep["vit"], rep["resnet"], rep["moe"]
+    print(f"vision and moe on {card}: 15a ViT-B/16 bf16 "
+          f"{vit['images_per_s']:.1f} images/s, request latency p50 "
+          f"{vit['latency_s']['p50']:.3f} s p99 {vit['latency_s']['p99']:.3f}"
+          f" s, batches {vit['batch_sizes']}, replica start "
+          f"{vit['replica_start_s']:.1f} s, top-1 agreement with vit_apply "
+          f"here {vit['top1_agree']:.3f} (f32 2 layers: every logit within "
+          f"{rep['vit_f32']['max_abs_err']:.2e}); 15b ResNet-50 "
+          f"{rn['images_per_s']:.1f} images/s, {rn['step_ms']:.2f} ms a step "
+          f"(bound {rn['bound_ms']:.2f} ms: {rn['train_flops']:.4g} FLOPs at "
+          f"989 TFLOP/s, share {rn['bound_share']:.3f}), peak "
+          f"{rn['peak_mem_gb']} GB; 15c MoE {moe['tokens_per_s']:.1f} "
+          f"tokens/s, {moe['mean_step_ms']:.2f} ms a step, aux "
+          f"{moe['aux']:.4f}, peak {moe['peak_mem_gb']} GB", flush=True)
+    print("vision_moe " + json.dumps(rep), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4929,10 +5361,18 @@ def main() -> int:
     bwd_runs += [check_flash_bwd(gen, 1, 32, 1000, True, d=128),
                  check_flash_bwd(gen, 1, 32, 512, False, d=128)]
     bwd_train = bwd_runs[0]
+    # ViT-B/16's attention (phase 15a): B=32 x S=197 (no multiple of the
+    # 64-row tile) x H=12 x D=64, not causal, forward and backward.
+    flash_vit = check_flash(gen, 197, False, h=12, b=32, timed=True)
+    check_flash(gen, 197, False, h=12, b=32, **f32)
+    bwd_vit = check_flash_bwd(gen, 32, 12, 197, False, timed=True)
+    bwd_runs += [bwd_vit,
+                 check_flash_bwd(gen, 32, 12, 197, False, torch.float32)]
     print("phase2 " + json.dumps({"decode": dec, "decode_gpt2": dec_gpt2,
                                   "decode_buckets": dec_buckets,
                                   "flash": flash_runs,
                                   "flash_train_shape": flash_train,
+                                  "flash_vit_shape": flash_vit,
                                   "flash_d128": flash_d128,
                                   "flash_bwd": bwd_runs}), flush=True)
 
@@ -5104,6 +5544,22 @@ def main() -> int:
                    for k in ("ring", "ulysses")}
     sharded_launches = pp["sharded_train"]["sharded"]["launches"]
     lap(14)
+    # Phase 15: the vision models and the MoE LM: ViT-B/16 served in
+    # batches from a replica leasing the card, ResNet-50 in a TorchTrainer
+    # worker, then the MoE LM's train step here and its parity.
+    from ray_tpu_torch.models import MoEConfig
+
+    vm = vision_moe_phase()
+    vm["moe"] = moe_train(MoEConfig(attention="flash"), MOE_SHAPE)
+    vm["moe_parity"] = {}
+    for dtype in ("float32", "bfloat16"):
+        vm["moe_parity"][dtype] = train_parity(
+            MoEConfig(n_layer=2, dtype=dtype, attention="flash"), 2, 1024,
+            fam=_moe_family())
+    report_vision_moe_phase(card, vm)
+    vit_launches = vm["vit"]["launches"]
+    moe_launches = vm["moe"]["launches"]
+    lap(15)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
@@ -5172,6 +5628,9 @@ def main() -> int:
          "launches_ring": sp_launches["ring"]["flash_fwd"],
          "launches_ulysses": sp_launches["ulysses"]["flash_fwd"],
          "launches_sharded_train": sharded_launches["flash_fwd"],
+         # Phase 15: 15a's bf16 replica (12 a batch), 15c's MoE steps.
+         "launches_vit_serve": vit_launches,
+         "launches_moe_train": moe_launches["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
@@ -5179,6 +5638,9 @@ def main() -> int:
          "library_ms": flash_main["library_ms"],
          "event_ms": flash_main["event_ms"],
          "train_shape": {k: flash_train[k] for k in (
+             "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "max_abs_err")},
+         "vit_shape": {k: flash_vit[k] for k in (
              "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err")}},
     ]
@@ -5200,13 +5662,22 @@ def main() -> int:
             "launches_ring": sp_launches["ring"][name],
             "launches_ulysses": sp_launches["ulysses"][name],
             "launches_sharded_train": sharded_launches[name],
+            "launches_moe_train": moe_launches[name],
             "max_abs_err": max(errs),
             "ms": rec["ms"], "event_ms": rec["event_ms"],
             "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": bwd_train["library_ms"],
             "library": f"one SDPA backward (dq, dk, dv): "
-                       f"{bwd_train['library_backend']}"})
+                       f"{bwd_train['library_backend']}",
+            "vit_shape": {
+                "ms": bwd_vit[key]["ms"], "event_ms": bwd_vit[key]["event_ms"],
+                "plain_ms": bwd_vit[key]["plain_ms"],
+                "bound_ms": bwd_vit[key]["bound_ms"],
+                "bound_by": bwd_vit[key]["bound_by"],
+                "library_ms": bwd_vit["library_ms"],
+                "max_abs_err": max(bwd_vit["max_abs_err"][g] for g in (
+                    ("dq",) if key == "dq" else ("dk", "dv")))}})
     print(f"seconds by phase {json.dumps(phase_s)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

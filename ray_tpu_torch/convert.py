@@ -2,8 +2,10 @@
 
 ``params_from_jax`` takes a JAX model's parameter tree with its leaves as
 numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
-``ParamTree`` holding the same values in the same layout;
-``stage_params_from_jax`` does the same for one chunk of a pipelined GPT-2
+``ParamTree`` holding the same values in the same layout (GPT-2, Llama,
+ViT and the MoE LM); ``resnet_params_from_jax`` does the same for ResNet's
+``(params, state)``, ``mlp_params_from_jax`` for the MLP's list of layers,
+and ``stage_params_from_jax`` for one chunk of a pipelined GPT-2
 (``train.pipeline.gpt2_stage_modules``).  bf16 leaves
 (numpy's ``bfloat16`` extension dtype, which ``torch.from_numpy`` does not
 take) go through a ``uint16`` view, so no bit changes.
@@ -11,7 +13,7 @@ take) go through a ``uint16`` view, so no bit changes.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +21,11 @@ import torch
 from .device import DeviceLike, resolve_device
 from .models.gpt2 import GPT2Config, gpt2_param_shapes
 from .models.llama import LlamaConfig, llama_param_shapes
-from .models.params import ParamTree, check_shapes
+from .models.mlp import mlp_param_shapes
+from .models.moe import MoEConfig, moe_param_shapes
+from .models.params import ParamList, ParamTree, check_shapes, map_tree
+from .models.resnet import ResNetConfig, resnet_param_shapes
+from .models.vit import ViTConfig, vit_param_shapes
 
 
 def tensor_from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -31,24 +37,47 @@ def tensor_from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+_SHAPES = ((GPT2Config, gpt2_param_shapes), (LlamaConfig, llama_param_shapes),
+           (ViTConfig, vit_param_shapes), (MoEConfig, moe_param_shapes))
+
+
+def _tensors(tree, device: torch.device):
+    return map_tree(lambda a: tensor_from_numpy(a, device), tree)
+
+
 def params_from_jax(tree: Dict[str, object], cfg,
                     device: DeviceLike = None) -> ParamTree:
     """JAX parameter tree (numpy leaves) → the port's ``ParamTree`` on
     ``device`` (the card unless it says "cpu").  Raises if the tree does
-    not hold exactly the leaves and shapes of ``cfg``'s family."""
-    if isinstance(cfg, GPT2Config):
-        shapes = gpt2_param_shapes(cfg)
-    elif isinstance(cfg, LlamaConfig):
-        shapes = llama_param_shapes(cfg)
-    else:
+    not hold exactly the leaves and shapes of ``cfg``'s model."""
+    shapes = next((fn(cfg) for cls, fn in _SHAPES if isinstance(cfg, cls)),
+                  None)
+    if shapes is None:
         raise TypeError(f"no conversion for config {type(cfg).__name__}")
     check_shapes(tree, shapes)
+    return ParamTree(_tensors(tree, resolve_device(device)))
+
+
+def resnet_params_from_jax(params: Dict[str, object],
+                           state: Dict[str, object], cfg: ResNetConfig,
+                           device: DeviceLike = None
+                           ) -> Tuple[ParamTree, Dict[str, object]]:
+    """JAX ``resnet_init``'s ``(params, state)`` (numpy leaves) → the
+    port's ``(ParamTree, state tree of tensors)`` on ``device``.  Raises
+    unless both trees hold exactly ``cfg``'s leaves and shapes."""
+    shapes, state_shapes = resnet_param_shapes(cfg)
+    check_shapes(params, shapes)
+    check_shapes(state, state_shapes)
     dev = resolve_device(device)
-    out = {k: tensor_from_numpy(v, dev) for k, v in tree.items()
-           if k != "blocks"}
-    out["blocks"] = {k: tensor_from_numpy(v, dev)
-                     for k, v in tree["blocks"].items()}
-    return ParamTree(out)
+    return ParamTree(_tensors(params, dev)), _tensors(state, dev)
+
+
+def mlp_params_from_jax(params: List[Dict[str, object]], sizes: Sequence[int],
+                        device: DeviceLike = None) -> ParamList:
+    """JAX ``mlp_init(key, sizes)``'s list of layers (numpy leaves) → the
+    port's ``ParamList`` on ``device``."""
+    check_shapes(params, mlp_param_shapes(sizes))
+    return ParamList(_tensors(params, resolve_device(device)))
 
 
 def stage_params_from_jax(tree: Dict[str, object], cfg: GPT2Config, v: int,

@@ -1,6 +1,8 @@
 """Model families of the port, and the registry that makes the LLM engine
 model-agnostic — port of ``ray_tpu/models/__init__.py``.  ``param_axes``
-is each family's logical sharding tree, for ``parallel.shard_pytree``."""
+is each family's logical sharding tree, for ``parallel.shard_pytree``.
+The MLP, ResNet, ViT and the MoE LM are exported beside them and, as in
+the JAX package, registered as no ``ModelFamily``: none of them decodes."""
 
 import dataclasses as _dataclasses
 from typing import Any as _Any, Callable as _Callable
@@ -32,7 +34,31 @@ from .llama_decode import (  # noqa: F401
     llama_init_cache,
     llama_prefill,
 )
-from .params import ParamTree  # noqa: F401
+from .params import ParamList, ParamTree  # noqa: F401
+from .mlp import mlp_apply, mlp_init  # noqa: F401
+from .moe import (  # noqa: F401
+    MoEConfig,
+    moe_apply,
+    moe_ffn,
+    moe_init,
+    moe_loss,
+    moe_param_axes,
+)
+from .resnet import (  # noqa: F401
+    ResNetConfig,
+    resnet_apply,
+    resnet_init,
+    resnet_loss,
+    resnet_param_axes,
+)
+from .vit import (  # noqa: F401
+    ViTConfig,
+    patchify,
+    vit_apply,
+    vit_init,
+    vit_loss,
+    vit_param_axes,
+)
 
 
 @_dataclasses.dataclass(frozen=True)

@@ -9,8 +9,13 @@ plain reference), ``dense_remat`` (the same, recomputed in backward),
 a mesh, ``ring`` (context parallel over the ``seq`` axis, each block on the
 flash kernels on the card) or ``ulysses`` (all-to-all over ``seq``).
 ``remat`` recomputes each block in backward (``torch.utils.checkpoint``, as
-``jax.checkpoint`` does there); the named remat policies are not ported
-yet.
+``jax.checkpoint`` does there); ``remat_policy`` names what a block saves
+instead of recomputing, as the JAX policies do, through a selective
+checkpoint policy: ``dots`` every matmul with no batch dims (the
+projections; ``torch.einsum`` lowers them to a ``bmm`` of batch 1),
+``dots_all`` every matmul, ``matmuls`` the tensors tagged ``qkv``,
+``attn_out``, ``attn_resid`` and ``mlp_hidden``, ``save_mlp`` only
+``mlp_hidden``.  Remat changes no value.
 
 ``mesh=`` (a ``DeviceMesh`` of ``parallel.build_mesh``, parameters placed
 by ``parallel.shard_pytree`` with ``gpt2_param_axes()``) runs the model
@@ -22,10 +27,15 @@ the path is the unsharded one.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..device import DeviceLike, dtype_of, resolve_device
 from ..ops.attention import flash_attention, reference_attention
@@ -45,8 +55,8 @@ class GPT2Config:
     attention: str = "dense"  # dense | flash | ring | ulysses
     remat: bool = False
     # "full" (and, as in JAX, any unknown value) recomputes the whole block
-    # in backward.  The named policies of the JAX package (dots, dots_all,
-    # matmuls, save_mlp) are not ported yet and raise.
+    # in backward; dots, dots_all, matmuls and save_mlp save what the JAX
+    # package's policies of those names save (REMAT_POLICIES).
     remat_policy: str = "full"
 
     @property
@@ -193,30 +203,76 @@ def seq_parallel_attention(q, k, v, kind: str, sp):
     return sp.local(o, QKV_AXES)
 
 
+@torch.library.custom_op("ray_tpu_torch::checkpoint_name", mutates_args=())
+def _checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: a copy of ``x`` that a named
+    remat policy can save by ``name``."""
+    return x.clone()
+
+
+@_checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+_checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# policy -> (tagged names saved, matmuls saved: None, "no_batch" or "all")
+REMAT_POLICIES = {
+    "dots": ((), "no_batch"),
+    "dots_all": ((), "all"),
+    "matmuls": (("qkv", "attn_out", "attn_resid", "mlp_hidden"), None),
+    "save_mlp": (("mlp_hidden",), None),
+}
+
+
+def _remat_policy(ctx, func, *args, names=(), dots=None, **kwargs):
+    if func is torch.ops.ray_tpu_torch.checkpoint_name.default:
+        return (CheckpointPolicy.MUST_SAVE if args[1] in names
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    if dots and func in _MATMULS:
+        batch = args[-2].shape[0] if func in _MATMULS[2:] else 1
+        if dots == "all" or batch == 1:
+            return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(policy: str):
+    names, dots = REMAT_POLICIES[policy]
+    return create_selective_checkpoint_contexts(
+        functools.partial(_remat_policy, names=names, dots=dots))
+
+
+def _tag(x, name: str, cfg: GPT2Config):
+    """``x`` tagged ``name`` where a named remat policy can save it."""
+    if cfg.remat and cfg.remat_policy in ("matmuls", "save_mlp"):
+        return _checkpoint_name(x, name)
+    return x
+
+
 def _block(x, layer, cfg: GPT2Config, sp=spmd(None)):
     # Local layouts: x and y (batch, seq, act_embed), q/k/v (batch, seq,
     # heads, kv), hdn (batch, seq, mlp) — the JAX block's constraints.
     y = sp.enter_tp(_layernorm(x, layer["ln1_g"], layer["ln1_b"]))
     qkv = torch.einsum("bse,ethd->bsthd", y, layer["wqkv"]) + layer["bqkv"]
+    qkv = _tag(qkv, "qkv", cfg)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    o = _attention(q, k, v, cfg, sp)
+    o = _tag(_attention(q, k, v, cfg, sp), "attn_out", cfg)
     x = x + (sp.exit_tp(torch.einsum("bshd,hde->bse", o, layer["wo"]))
              + layer["bo"]).to(x.dtype)
+    x = _tag(x, "attn_resid", cfg)
     y = sp.enter_tp(_layernorm(x, layer["ln2_g"], layer["ln2_b"]))
     hdn = _gelu(torch.einsum("bse,ef->bsf", y, layer["wi"]) + layer["bi"])
+    hdn = _tag(hdn, "mlp_hidden", cfg)
     return x + (sp.exit_tp(torch.einsum("bsf,fe->bse", hdn, layer["wo2"]))
                 + layer["bo2"]).to(x.dtype)
-
-
-REMAT_POLICIES_NOT_PORTED = ("dots", "dots_all", "matmuls", "save_mlp")
 
 
 def _hidden(params: ParamTree, tokens, cfg: GPT2Config, sp):
     """Local [B, S] token ids → (this rank's final hidden block, the
     embedding table in its compute layout, for the unembedding)."""
-    if cfg.remat and cfg.remat_policy in REMAT_POLICIES_NOT_PORTED:
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported yet")
     s = tokens.shape[1]
     # Gather from a replicated view of the table (the JAX model's
     # P(None, "act_embed")): one all-gather of wte, then a local lookup.
@@ -227,7 +283,11 @@ def _hidden(params: ParamTree, tokens, cfg: GPT2Config, sp):
     layer_params = sp.layers(params.blocks, gpt2_param_axes()["blocks"])
     for l in range(cfg.n_layer):
         layer = layer_params(l)
-        if cfg.remat:
+        if cfg.remat and cfg.remat_policy in REMAT_POLICIES:
+            x = checkpoint(_block, x, layer, cfg, sp, use_reentrant=False,
+                           context_fn=functools.partial(
+                               _remat_context, cfg.remat_policy))
+        elif cfg.remat:
             x = checkpoint(_block, x, layer, cfg, sp, use_reentrant=False)
         else:
             x = _block(x, layer, cfg, sp)

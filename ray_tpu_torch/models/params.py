@@ -1,10 +1,15 @@
 """Parameter trees in the JAX package's layout, held by an ``nn.Module``.
 
-A JAX model's params are a dict of top-level leaves plus ``"blocks"``, a
-dict of layer-stacked leaves (``wq [L, E, H, D]``, ``wo [L, H, D, E]``...).
-``ParamTree`` keeps exactly that layout, so converting from JAX is a copy,
-never a transpose, and the model code indexes it as the JAX code does:
-``params["wte"]``, ``params["blocks"]["wq"][l]``.
+A JAX model's params are a pytree: GPT-2's is a dict of top-level leaves
+plus ``"blocks"``, a dict of layer-stacked leaves (``wq [L, E, H, D]``,
+``wo [L, H, D, E]``...); ResNet's nests deeper (``{"stem": {"w", "bn":
+{"g", "b"}}, "stage0": [block dicts...], "head": {...}}``) and the MLP's
+is a list of ``{"w", "b"}``.  ``ParamTree`` keeps exactly that layout —
+a dict of leaves only becomes an ``nn.ParameterDict``, a dict with nested
+entries a ``ParamTree``, a list a ``ParamList`` — so converting from JAX
+is a copy, never a transpose, and the model code indexes it as the JAX
+code does: ``params["wte"]``, ``params["blocks"]["wq"][l]``,
+``params["stage0"][1]["conv2"]["bn"]["g"]``.
 """
 
 from __future__ import annotations
@@ -14,7 +19,20 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-Shapes = Dict[str, object]  # name -> shape tuple, and "blocks" -> {name: shape}
+Shapes = Dict[str, object]  # name -> shape tuple, dict or list of them
+
+
+def _node(value):
+    """A tree node as a module (or, for a leaf, a frozen parameter)."""
+    if isinstance(value, dict):
+        if all(isinstance(v, torch.Tensor) for v in value.values()):
+            return nn.ParameterDict({
+                k: nn.Parameter(v, requires_grad=False)
+                for k, v in value.items()})
+        return ParamTree(value)
+    if isinstance(value, (list, tuple)):
+        return ParamList(value)
+    return nn.Parameter(value, requires_grad=False)
 
 
 class ParamTree(nn.Module):
@@ -24,38 +42,82 @@ class ParamTree(nn.Module):
 
     def __init__(self, tree: Dict[str, object]):
         super().__init__()
+        self._keys = list(tree)
         for name, value in tree.items():
-            if name == "blocks":
-                self.blocks = nn.ParameterDict({
-                    k: nn.Parameter(v, requires_grad=False)
-                    for k, v in value.items()
-                })
-            else:
-                setattr(self, name, nn.Parameter(value, requires_grad=False))
+            setattr(self, name, _node(value))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def __contains__(self, name) -> bool:
+        return name in self._keys
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def keys(self):
+        return list(self._keys)
+
+    def items(self):
+        return [(k, self[k]) for k in self._keys]
 
     def layer(self, index: int) -> Dict[str, torch.Tensor]:
         """The ``index``-th slice of every layer-stacked leaf (views)."""
         return {k: v[index] for k, v in self.blocks.items()}
 
+    def tree(self):
+        """The tree as nested dicts and lists of its parameters."""
+        return as_tree(self)
 
-def check_shapes(tree: Dict[str, object], shapes: Shapes) -> None:
+
+class ParamList(nn.ModuleList):
+    """A list node of a ``ParamTree`` (ResNet's blocks of a stage, the
+    MLP's layers): each entry a ``ParamTree`` or ``nn.ParameterDict``."""
+
+    def __init__(self, items):
+        super().__init__([_node(v) for v in items])
+
+    def tree(self):
+        return as_tree(self)
+
+
+def as_tree(node):
+    """A ``ParamTree`` node (or a tree of tensors) as nested dicts and
+    lists of its tensors."""
+    if isinstance(node, (ParamTree, nn.ParameterDict, dict)):
+        return {k: as_tree(v) for k, v in node.items()}
+    if isinstance(node, (nn.ModuleList, list, tuple)):
+        return [as_tree(v) for v in node]
+    return node
+
+
+def map_tree(fn, tree):
+    """``fn`` over every leaf of nested dicts and lists (a pytree map)."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def check_shapes(tree, shapes: Shapes) -> None:
     """Raise unless ``tree`` holds exactly the leaves of ``shapes``."""
 
     def walk(t, s, prefix) -> None:
-        if set(t) != set(s):
-            raise ValueError(
-                f"{prefix or 'params'}: leaves {sorted(t)} != {sorted(s)}"
-            )
-        for k, want in s.items():
-            if isinstance(want, dict):
+        where = prefix.rstrip(".") or "params"
+        if isinstance(s, dict):
+            if not isinstance(t, dict) or set(t) != set(s):
+                got = sorted(t) if isinstance(t, dict) else type(t).__name__
+                raise ValueError(f"{where}: leaves {got} != {sorted(s)}")
+            for k, want in s.items():
                 walk(t[k], want, f"{prefix}{k}.")
-            elif tuple(t[k].shape) != tuple(want):
-                raise ValueError(
-                    f"{prefix}{k}: shape {tuple(t[k].shape)} != {want}"
-                )
+        elif isinstance(s, list):
+            if not isinstance(t, (list, tuple)) or len(t) != len(s):
+                raise ValueError(f"{where}: not a list of {len(s)}")
+            for i, want in enumerate(s):
+                walk(t[i], want, f"{prefix}{i}.")
+        elif tuple(t.shape) != tuple(s):
+            raise ValueError(f"{where}: shape {tuple(t.shape)} != {s}")
 
     walk(tree, shapes, "")
 

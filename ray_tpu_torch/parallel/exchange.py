@@ -23,7 +23,9 @@ Each operation is differentiable as its JAX counterpart is under
 ``all_to_all``'s the inverse all-to-all; ``psum``'s output is taken as
 replicated, so its gradient passes through, and ``copy_to`` is its
 transpose (identity forward, the gradient summed over the axis) — the two
-halves of a tensor-parallel matmul.
+halves of a tensor-parallel matmul.  ``allreduce`` sums per-rank partial
+values whose outputs each rank goes on using on its own (a batch norm's
+statistics): forward and backward are both a psum.
 """
 
 from __future__ import annotations
@@ -122,6 +124,9 @@ class MeshExchange:
     def copy_to(self, xs, axis: str):
         return [_CopyTo.apply(xs[0], self, axis)]
 
+    def allreduce(self, xs, axis: str):
+        return [_AllReduce.apply(xs[0], self, axis)]
+
     def all_to_all(self, xs, axis: str, split_dim: int, concat_dim: int):
         return [_AllToAll.apply(xs[0], self, axis, split_dim, concat_dim)]
 
@@ -153,6 +158,21 @@ class _CopyTo(torch.autograd.Function):
     def forward(ctx, x, ex, axis):
         ctx.ex, ctx.axis = ex, axis
         return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ex._psum(g, ctx.axis), None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over the axis of per-rank partial values (a batch norm's
+    statistics over a split batch): each rank's output feeds its own
+    partial loss, so the cotangents are summed over the axis as well."""
+
+    @staticmethod
+    def forward(ctx, x, ex, axis):
+        ctx.ex, ctx.axis = ex, axis
+        return ex._psum(x, axis)
 
     @staticmethod
     def backward(ctx, g):

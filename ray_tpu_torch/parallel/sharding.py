@@ -109,12 +109,13 @@ def with_logical_constraint(x, logical_axes, mesh=None,
 def shard_pytree(params, axes_tree, mesh, rules: Optional[LogicalRules] = None):
     """Place a tree of tensors according to a matching tree of logical
     axes (``distribute_tensor``; a leaf whose axes are None is
-    replicated).  A ``models.ParamTree`` comes back as a ``ParamTree`` of
-    DTensor ``nn.Parameter``s, its ``requires_grad`` kept; a dict comes
-    back as a dict of DTensors."""
+    replicated).  A ``models.ParamTree`` (nested dicts and lists, as the
+    vision models' trees are) comes back as a ``ParamTree`` of DTensor
+    ``nn.Parameter``s, its ``requires_grad`` kept; a dict or list comes
+    back as a dict or list of DTensors."""
     from torch.distributed.tensor import distribute_tensor
 
-    from ..models.params import ParamTree
+    from ..models.params import ParamTree, as_tree
 
     def place(x, axes):
         if axes is None:
@@ -125,15 +126,14 @@ def shard_pytree(params, axes_tree, mesh, rules: Optional[LogicalRules] = None):
     def walk(tree, axes):
         if isinstance(tree, dict):
             return {k: walk(v, axes[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, a) for v, a in zip(tree, axes)]
         return place(tree, axes)
 
     if not isinstance(params, ParamTree):
         return walk(params, axes_tree)
-    tree = {k: place(v, axes_tree[k])
-            for k, v in params.named_parameters(recurse=False)}
-    tree["blocks"] = walk(dict(params.blocks.items()), axes_tree["blocks"])
     grad = any(p.requires_grad for p in params.parameters())
-    return ParamTree(tree).requires_grad_(grad)
+    return ParamTree(walk(as_tree(params), axes_tree)).requires_grad_(grad)
 
 
 def sharding_tree(axes_tree, mesh, rules: Optional[LogicalRules] = None):

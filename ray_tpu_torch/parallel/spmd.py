@@ -20,7 +20,9 @@ GSPMD would insert:
     matmul over the model axis (identity forward with the gradient summed,
     then a psum whose gradient passes through);
   - ``total`` sums a per-rank partial loss over the batch and sequence
-    axes;
+    axes; ``batch_sum`` sums per-rank partial statistics over the batch
+    axes (a batch norm's, differentiable both ways) and ``batch_split``
+    is how many ranks split the batch;
   - ``dist``/``local`` cross between local blocks and DTensors where an
     attention wrapper or a caller takes global tensors.
 
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .exchange import MeshExchange
@@ -39,6 +42,9 @@ from .sharding import LogicalRules, logical_sharding, with_logical_constraint
 
 # Logical names of the axes a layer splits over the model (TP) axis.
 TP_NAMES = ("heads", "mlp")
+# Parameter axes kept sharded in the compute layout: the TP names, and the
+# expert axis (each rank runs its own experts).
+KEPT_NAMES = TP_NAMES + ("expert",)
 
 
 def _axes_of(entry):
@@ -74,6 +80,11 @@ class _Unsharded:
     def total(self, x):
         return x
 
+    batch_split = 1
+
+    def batch_sum(self, x):
+        return x
+
     def dist(self, x, axes):
         return x
 
@@ -94,9 +105,12 @@ class Spmd:
         names = mesh.mesh_dim_names
         self.seq_axis = self.rules.get("seq")
         self.seq_size = self._size(self.seq_axis)
-        self.split_axes = tuple(
-            a for a in _axes_of(self.rules.get("batch"))
-            + _axes_of(self.seq_axis) if a in names)
+        self.batch_axes = tuple(a for a in _axes_of(self.rules.get("batch"))
+                                if a in names)
+        self.batch_split = int(np.prod([self._size(a)
+                                        for a in self.batch_axes]))
+        self.split_axes = self.batch_axes + tuple(
+            a for a in _axes_of(self.seq_axis) if a in names)
         tp = {self.rules.get(n) for n in TP_NAMES}
         if len(tp) != 1:
             raise ValueError(f"heads and mlp map to different axes: {tp}")
@@ -176,6 +190,12 @@ class Spmd:
                 x = self.ex.psum([x], axis)[0]
         return x
 
+    def batch_sum(self, x):
+        for axis in self.batch_axes:
+            if self._size(axis) > 1:
+                x = self.ex.allreduce([x], axis)[0]
+        return x
+
     def dist(self, x, axes):
         """A DTensor of local block ``x`` laid out as logical ``axes``."""
         from torch.distributed.tensor import DTensor
@@ -232,9 +252,9 @@ def spmd(mesh, rules: Optional[LogicalRules] = None):
 
 
 def compute_axes(axes):
-    """A parameter's compute layout: the model-parallel names kept, every
-    other (the ZeRO-3 "embed") gathered."""
-    return tuple(a if a in TP_NAMES else None for a in axes)
+    """A parameter's compute layout: the model- and expert-parallel names
+    kept, every other (the ZeRO-3 "embed") gathered."""
+    return tuple(a if a in KEPT_NAMES else None for a in axes)
 
 
 class LocalShardOptimizer:

@@ -9,6 +9,14 @@ the port, ``shard_pytree`` places them, and one world of 8 gloo ranks
 (``torch_parallel_programs.models_suite``) computes the port's side.  The
 JAX side runs on conftest's 8 virtual devices.  Tolerances are the JAX
 parallel tests': forward (losses, logits) 2e-4, gradients 1e-3.
+
+The same world runs the vision models and the MoE LM at the JAX model
+tests' meshes and tolerances (tests/test_models.py:149-161, 190-205,
+243-258), each against the JAX model on one device: ResNet eval on
+data=8 (1e-4), ResNet train on data=2 — loss, ``new_state`` (the batch
+statistics of the global batch) and every gradient leaf (1e-4), ViT on
+(fsdp=4, model=2) (2e-3), the MoE LM on (data=2, expert=4) (logits 2e-3,
+aux 1e-4; the loss and every gradient leaf at 2e-3).
 """
 
 import os
@@ -56,9 +64,31 @@ def _mesh():
     return jbuild_mesh(JMeshConfig(fsdp=2, seq=2, model=2))
 
 
+def _vision_inputs():
+    rng = np.random.default_rng(12)
+    rparams, rstate = jm.resnet_init(jax.random.PRNGKey(3),
+                                     jm.ResNetConfig.tiny(dtype="float32"))
+    return {
+        "resnet_params": jax.tree.map(np.asarray, rparams),
+        "resnet_state": jax.tree.map(np.asarray, rstate),
+        "resnet_x8": rng.standard_normal((8, 32, 32, 3)).astype(np.float32),
+        "resnet_x4": rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+        "resnet_y4": rng.integers(0, 10, (4,)),
+        "vit_params": jax.tree.map(np.asarray, jm.vit_init(
+            jax.random.PRNGKey(4), jm.ViTConfig.tiny(dtype="float32"))),
+        "vit_x": rng.standard_normal((4, 32, 32, 3)).astype(np.float32),
+        "moe_params": jax.tree.map(np.asarray, jm.moe_init(
+            jax.random.PRNGKey(5), jm.MoEConfig.tiny(dtype="float32"))),
+        "moe_tokens": rng.integers(0, 512, (4, 33)),
+    }
+
+
+VISION = _vision_inputs()
+
+
 @pytest.fixture(scope="module")
 def port():
-    inp = {"tokens": TOKENS.astype(np.int64)}
+    inp = {"tokens": TOKENS.astype(np.int64), "vision": VISION}
     for name in CFGS:
         inp[f"{name}_cfg"] = CFGS[name]
         inp[f"{name}_params"] = JPARAMS[name]
@@ -121,6 +151,80 @@ def test_ring_logits_and_grads_match_jax(port, name):
                                        atol=GRAD, err_msg=f"{key}.{sub}")
             n += 1
     assert n == len(got) - 1 + len(got["blocks"])
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}{k}."))
+    return out
+
+
+def _close_trees(got, want, tol, what):
+    got, want = _flat(got), _flat(want)
+    assert set(got) == set(want), what
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k], w, rtol=tol, atol=tol,
+                                   err_msg=f"{what} {k}")
+
+
+def _jax_one_device(case):
+    """The JAX model on one device, on the world's inputs."""
+    v = jax.tree.map(jnp.asarray, VISION)
+    if case.startswith("resnet"):
+        cfg = jm.ResNetConfig.tiny(dtype="float32")
+        if case == "resnet-data8-eval":
+            return jm.resnet_apply(v["resnet_params"], v["resnet_state"],
+                                   v["resnet_x8"], cfg)[0]
+        (loss, state), grads = jax.value_and_grad(
+            jm.resnet_loss, has_aux=True)(v["resnet_params"],
+                                          v["resnet_state"], v["resnet_x4"],
+                                          v["resnet_y4"], cfg)
+        return loss, state, grads
+    if case == "vit-fsdp4-model2":
+        return jm.vit_apply(v["vit_params"], v["vit_x"],
+                            jm.ViTConfig.tiny(dtype="float32"))
+    cfg = jm.MoEConfig.tiny(dtype="float32")
+    logits, aux = jm.moe_apply(v["moe_params"], v["moe_tokens"][:, :-1], cfg)
+    loss, grads = jax.value_and_grad(
+        lambda p: jm.moe_loss(p, v["moe_tokens"], cfg))(v["moe_params"])
+    return logits, aux, loss, grads
+
+
+@pytest.mark.parametrize("case", ["resnet-data8-eval", "resnet-data2-train",
+                                  "vit-fsdp4-model2", "moe-data2-expert4"])
+def test_vision_and_moe_on_a_mesh_match_jax(port, case):
+    got = port["vision"]
+    want = _jax_one_device(case)
+    if case == "resnet-data8-eval":
+        np.testing.assert_allclose(got["resnet_data8_eval"], np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+    elif case == "resnet-data2-train":
+        loss, state, grads = want
+        have = got["resnet_data2_train"]
+        assert have["loss"] == pytest.approx(float(loss), rel=1e-4, abs=1e-4)
+        _close_trees(have["new_state"], jax.tree.map(np.asarray, state),
+                     1e-4, "new_state")
+        _close_trees(have["grads"], jax.tree.map(np.asarray, grads), 1e-4,
+                     "grad")
+    elif case == "vit-fsdp4-model2":
+        np.testing.assert_allclose(got["vit_fsdp4_model2"], np.asarray(want),
+                                   rtol=2e-3, atol=2e-3)
+    else:
+        logits, aux, loss, grads = want
+        have = got["moe_data2_expert4"]
+        np.testing.assert_allclose(have["logits"], np.asarray(logits),
+                                   rtol=2e-3, atol=2e-3)
+        assert have["aux"] == pytest.approx(float(aux), rel=1e-4)
+        assert have["loss"] == pytest.approx(float(loss), rel=2e-3, abs=2e-3)
+        _close_trees(have["grads"], jax.tree.map(np.asarray, grads), 2e-3,
+                     "grad")
 
 
 def test_dryrun_multichip_matches_jax():

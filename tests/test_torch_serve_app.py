@@ -246,7 +246,10 @@ def test_gpu_lease_places_the_replica_on_card_0(families, port):
     try:
         assert handle.placement.remote().result(timeout=TIMEOUT) == ("0",
                                                                      "cpu")
-        assert port.available_resources().get("GPU", 0.0) == 0.0
+        # The resource view is refreshed on a period, which a loaded host
+        # stretches: wait for the lease to show rather than read it once.
+        wait_for(lambda: port.available_resources().get("GPU", 0.0) == 0.0,
+                 what="the replica's GPU lease in available_resources()")
     finally:
         tserve.delete("LLMServer")
 

@@ -283,21 +283,31 @@ PROGRAMS = {name[len("prog_"):]: fn for name, fn in dict(globals()).items()
             if name.startswith("prog_")}
 
 
-def _run_all(rt, train, pkg):
+def _run_all(rt, train, pkg, tries=1):
+    """Each program's result, or what it raised.  ``tries`` > 1 runs a
+    program that raised again, up to that many runs in all."""
     out = {}
     for name, prog in PROGRAMS.items():
-        try:
-            out[name] = prog(rt, train, pkg)
-        except Exception as e:  # noqa: BLE001 — compared per program
-            out[name] = f"raised {type(e).__name__}: {e}"
+        for _ in range(tries):
+            try:
+                out[name] = prog(rt, train, pkg)
+                break
+            except Exception as e:  # noqa: BLE001 — compared per program
+                out[name] = f"raised {type(e).__name__}: {e}"
     return out
 
 
 @pytest.fixture(scope="module")
 def jax_results():
+    """The reference results.  On a loaded host the JAX runtime can lose a
+    fresh worker's first call ("connect call failed ... after 3 attempts")
+    and fail a fit through no fault of the program, which left
+    failure_recovery_from_checkpoint with no reference at all; so a JAX
+    program that raised runs again, up to 3 times in all, until it gives
+    a result.  The port's side runs once."""
     ray_tpu.init(num_cpus=8)
     try:
-        return _run_all(ray_tpu, jtrain, "ray_tpu")
+        return _run_all(ray_tpu, jtrain, "ray_tpu", tries=3)
     finally:
         ray_tpu.shutdown()
 

@@ -45,11 +45,26 @@ def port():
     ray_tpu_torch.shutdown()
 
 
-def _wait(cond, what, timeout=60.0):
+def _wait(cond, what, timeout=120.0):
     deadline = time.monotonic() + timeout
     while not cond():
         assert time.monotonic() < deadline, what
         time.sleep(0.1)
+
+
+class _WatchedTrainer(ttrain.DataParallelTrainer):
+    """The trainer, with the metrics its fit has drained so far visible to
+    the test while ``fit`` runs in another thread."""
+
+    history = None
+
+    def _poll_until_done(self, group, run_refs, ckpt_mgr, metrics_history):
+        self.history = metrics_history
+        return super()._poll_until_done(group, run_refs, ckpt_mgr,
+                                        metrics_history)
+
+    def seen_world(self, n: int) -> bool:
+        return any(m.get("world") == n for m in list(self.history or []))
 
 
 def test_trainer_grow_shrink_loss_parity(port):
@@ -111,7 +126,7 @@ def test_trainer_grow_shrink_loss_parity(port):
             if offered:
                 return  # cooperative stop: re-form at the new size
 
-    trainer = ttrain.DataParallelTrainer(
+    trainer = _WatchedTrainer(
         loop, train_loop_config={"dim": DIM, "lr": LR, "total": TOTAL_STEPS},
         scaling_config=ttrain.ScalingConfig(
             num_workers=2, min_workers=1, resources_per_worker={"CPU": 1.0},
@@ -126,11 +141,15 @@ def test_trainer_grow_shrink_loss_parity(port):
     burst = None
     try:
         _wait(lambda: alive() >= base + 2, "the gang of 1 never formed")
-        time.sleep(0.5)  # steps at world 1
+        _wait(lambda: trainer.seen_world(1), "no world-1 metric reached fit")
         port.kill(occupier)  # grow: room for 2
         _wait(lambda: alive() < base + 2, "the occupier never went")
         _wait(lambda: alive() >= base + 2, "the gang never grew to 2")
-        time.sleep(1.0)  # steps at world 2
+        # Steps at world 2: wait until fit has drained a metric of the gang
+        # of 2, which a loaded host can delay well past any fixed sleep (a
+        # report the gang made but fit had not yet polled is lost when the
+        # burst preempts it).
+        _wait(lambda: trainer.seen_world(2), "no world-2 metric reached fit")
         # shrink: a burst takes a CPU out from under the gang of 2
         burst = port.placement_group([{"CPU": 1.0}], name="burst",
                                      priority=10000)

@@ -98,7 +98,8 @@ def _leaf_grads(params):
 
 def models_suite(inp):
     """Losses (and, for the ring, logits and every gradient leaf) of both
-    families on the (fsdp=2, seq=2, model=2) mesh, JAX's weights."""
+    families on the (fsdp=2, seq=2, model=2) mesh, JAX's weights; then, in
+    the same world, ``vision_moe_suite`` under ``"vision"``."""
     from ray_tpu_torch.convert import params_from_jax
     from ray_tpu_torch.parallel import shard_pytree
 
@@ -120,6 +121,7 @@ def models_suite(inp):
                 with torch.no_grad():
                     logits = apply_fn(params, tokens[:, :-1], cfg, mesh)
                 res[f"{name}_ring_logits"] = _np(logits.full_tensor())
+    res["vision"] = vision_moe_suite(inp["vision"])
     return res
 
 
@@ -164,6 +166,84 @@ def multislice_suite(inp):
         opt.zero_grad()
         losses.append(float(loss))
     res["train_losses"] = losses
+    return res
+
+
+def _full_tree(tree):
+    """A tree of DTensors and tensors as numpy, each leaf whole."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models.params import as_tree, map_tree
+
+    return map_tree(lambda t: _np(t.full_tensor() if isinstance(t, DTensor)
+                                  else t), as_tree(tree))
+
+
+def vision_moe_suite(inp):
+    """The vision models and the MoE LM under the JAX tests' meshes, JAX's
+    weights: ResNet eval on data=8, ResNet train (loss, new_state, every
+    gradient leaf) on data=2, ViT on (fsdp=4, model=2), MoE logits and aux
+    on (data=2, expert=4).  The data=2 mesh holds ranks 0 and 1; the other
+    ranks build it and return None for its results."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import models as tm
+    from ray_tpu_torch.convert import params_from_jax, resnet_params_from_jax
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh, shard_pytree
+
+    res = {}
+    cfg = tm.ResNetConfig.tiny(dtype="float32")
+
+    def resnet(mesh):
+        params, state = resnet_params_from_jax(
+            inp["resnet_params"], inp["resnet_state"], cfg, device="cpu")
+        return shard_pytree(params, tm.resnet_param_axes(params), mesh), state
+
+    mesh = _mesh(data=8)
+    params, state = resnet(mesh)
+    with torch.no_grad():
+        out, _ = tm.resnet_apply(params, state, _t(inp["resnet_x8"]), cfg,
+                                 mesh=mesh)
+    res["resnet_data8_eval"] = _np(out.full_tensor())
+
+    mesh2 = build_mesh(MeshConfig(data=2), devices=[0, 1])
+    if dist.get_rank() < 2:
+        params, state = resnet(mesh2)
+        params.requires_grad_(True)
+        loss, new_state = tm.resnet_loss(
+            params, state, _t(inp["resnet_x4"]), _t(inp["resnet_y4"]), cfg,
+            mesh=mesh2)
+        loss.backward()
+        res["resnet_data2_train"] = {
+            "loss": float(loss), "new_state": _full_tree(new_state),
+            "grads": _full_tree({n: p.grad for n, p in
+                                 params.named_parameters()})}
+
+    vcfg = tm.ViTConfig.tiny(dtype="float32")
+    mesh = _mesh(fsdp=4, model=2)
+    params = shard_pytree(params_from_jax(inp["vit_params"], vcfg,
+                                          device="cpu"),
+                          tm.vit_param_axes(), mesh)
+    with torch.no_grad():
+        res["vit_fsdp4_model2"] = _np(
+            tm.vit_apply(params, _t(inp["vit_x"]), vcfg, mesh).full_tensor())
+
+    mcfg = tm.MoEConfig.tiny(dtype="float32")
+    mesh = _mesh(data=2, expert=4)
+    params = shard_pytree(params_from_jax(inp["moe_params"], mcfg,
+                                          device="cpu"),
+                          tm.moe_param_axes(), mesh)
+    with torch.no_grad():
+        logits, aux = tm.moe_apply(params, _t(inp["moe_tokens"][:, :-1]),
+                                   mcfg, mesh)
+    params.requires_grad_(True)
+    loss = tm.moe_loss(params, _t(inp["moe_tokens"]), mcfg, mesh)
+    loss.backward()
+    res["moe_data2_expert4"] = {
+        "logits": _np(logits.full_tensor()), "aux": float(aux),
+        "loss": float(loss),
+        "grads": _full_tree({n: p.grad for n, p in
+                             params.named_parameters()})}
     return res
 
 

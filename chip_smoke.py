@@ -2,8 +2,9 @@
 """Drive ray_tpu_torch's serving and training paths, its runtime, its Data
 layer, its collective layer and Train, its DAGs, Tune and jobs, its
 pipeline-parallel trainer, its autoscaler, its parallel layer (ring and
-Ulysses attention, the sharded train step) and its vision and MoE models
-on one NVIDIA GPU and check them.
+Ulysses attention, the sharded train step), its vision and MoE models and
+RLlib (the learners, Anakin and Sebulba) on one NVIDIA GPU and check
+them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -217,6 +218,33 @@ Phases (none is caught: any failure exits non-zero):
      falling, 12/12/12 launches a step, the aux loss above 0; tokens/s
      and peak memory; then phase 6's parity at 2 layers (f32 loss and
      every leaf at 1e-4, bf16 launch by launch).
+ 16. RLlib, whose networks are small MLPs (no kernel of the four is on
+     its path): (a) ``CartPoleTorch`` and ``PendulumTorch`` step 1,000
+     seeded states, step counts and actions on the card at once (across
+     CartPole's thresholds, 1 in 10 on its last step), against the numpy
+     envs: obs within 1e-5 where not done, a fresh episode where done,
+     CartPole's rewards and every done equal, Pendulum's rewards within
+     1e-5 (f32 against f64);
+     (b) card against CPU from the same params and inputs, each within
+     1e-5 relative: the batched v-trace loss, aux and every gradient leaf
+     at E=64 x T=16 with and without the APPO clip,
+     ``TorchLearner.update_minibatches`` on one 2 x 256-step batch, one
+     SAC update with its noise passed in; (c) Anakin at bench_rl's sizes
+     (64 envs, unroll 16, 20 updates a step) on the card, 1 warm-up and
+     3 timed ``training_step``s (env-steps/s, ms a step), one profiled
+     update (device ms, kernels, busy share) and one profiled
+     ``training_step`` with at most 2 device-to-host copies; then
+     ``test_anakin_learns_cartpole``'s configuration on one replica must
+     beat its seeded threshold within 6 steps; then, under a fresh
+     ``ray_tpu_torch.init(num_cpus=4)``: (d) ``bench_rl``'s Anakin
+     against the host-loop IMPALA (2 CPU runners, rollout 128, 4 batches,
+     learner on the card), ratio above 1.0; (e) Sebulba at bench_rl's
+     sizes (2 runners x 4 envs, 64 steps, 8 batches a step), each
+     runner's forward on a quarter-card lease (``cuda``, printed with its
+     ``CUDA_VISIBLE_DEVICES``), the learner on the card: learner steps/s,
+     staleness, broadcast bytes, each runner's start; (f) PPO with 2 CPU
+     runners x 256 steps, 3 iterations: finite losses, every learner
+     tensor on ``cuda``, ms an ``update_minibatches`` and s an iteration.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -5264,6 +5292,466 @@ def report_vision_moe_phase(card: str, rep: dict) -> None:
     print("vision_moe " + json.dumps(rep), flush=True)
 
 
+# ----------------------------------------------------------------- phase 16
+RL_SEED = SEED + 190
+RL_ENV_CASES = 1000  # 16a: seeded states and actions a env
+RL_TOL = 1e-5  # 16a obs; 16b every loss, aux and leaf, relative
+RL_VTRACE_SHAPE = (64, 16)  # 16b: Anakin's E x T
+RL_PPO_BATCH = 512  # 16b: 2 runners x 256 steps
+RL_SAC_BATCH = 128
+ANAKIN_TIMED = 3  # 16c: timed training_steps after one warm-up
+ANAKIN_MAX_D2H = 2  # 16c: device-to-host copies a training_step
+PPO_ITERS = 3  # 16f
+
+
+def _rel_err(got, want) -> float:
+    """Largest |got - want| over the largest |want| (0 when both are 0)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    return err / scale if scale > 0 else err
+
+
+def _tree_rel(got, want) -> float:
+    from ray_tpu_torch.rllib.algorithm import tree_paths
+
+    g, w = dict(tree_paths(got)), dict(tree_paths(want))
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"leaves differ: {sorted(g)} vs {sorted(w)}")
+    return max(_rel_err(g[k], w[k]) for k in w)
+
+
+def rl_env_parity(device="cuda", n=RL_ENV_CASES, seed=RL_SEED) -> dict:
+    """16a: ``CartPoleTorch`` and ``PendulumTorch`` stepping ``n`` seeded
+    states, step counts and actions on ``device`` at once, against the
+    numpy envs one state at a time.  The states straddle CartPole's x and
+    angle thresholds and Pendulum's velocity clip, and 1 in 10 is on its
+    last step, so done and the auto-reset run too.  Obs within 1e-5 where
+    the step is not done; where it is, the torch env has reset itself (a
+    fresh state within 0.05, or Pendulum's reset ranges, at step 0);
+    CartPole's rewards and every done equal; Pendulum's rewards within
+    1e-5 (f32 here, f64 in numpy)."""
+    from ray_tpu_torch.rllib import CartPole, Pendulum
+    from ray_tpu_torch.rllib.algorithm import seeded_generator
+    from ray_tpu_torch.rllib.env import CartPoleTorch, PendulumTorch
+
+    rng = np.random.default_rng(seed)
+    rep = {}
+    last = lambda: np.where(rng.random(n) < 0.1, 199,  # noqa: E731
+                            rng.integers(0, 199, n)).astype(np.int32)
+    cases = {
+        "cartpole": (CartPoleTorch(), CartPole(seed=0),
+                     rng.uniform([-2.5, -1.0, -0.25, -1.0],
+                                 [2.5, 1.0, 0.25, 1.0], (n, 4))
+                     .astype(np.float32), last(), rng.integers(0, 2, n)),
+        "pendulum": (PendulumTorch(), Pendulum(seed=0),
+                     np.stack([rng.uniform(-np.pi, np.pi, n),
+                               rng.uniform(-8.0, 8.0, n)], -1)
+                     .astype(np.float32), last(),
+                     rng.uniform(-2.5, 2.5, n).astype(np.float32)),
+    }
+    for name, (tenv, nenv, phys, steps, actions) in cases.items():
+        state = {"phys": torch.from_numpy(phys).to(device),
+                 "steps": torch.from_numpy(steps).to(device)}
+        new, obs, rew, done = tenv.step(
+            seeded_generator(device, seed), state,
+            torch.from_numpy(actions).to(device))
+        obs, rew, done = obs.cpu().numpy(), rew.cpu().numpy(), \
+            done.cpu().numpy()
+        new_phys, new_steps = (new["phys"].cpu().numpy(),
+                               new["steps"].cpu().numpy())
+        want = []
+        for i in range(n):
+            nenv.state = phys[i].astype(
+                np.float32 if name == "cartpole" else np.float64)
+            nenv.steps = int(steps[i])
+            a = int(actions[i]) if name == "cartpole" else actions[i]
+            want.append(nenv.step(a))
+        wobs = np.stack([w[0] for w in want])
+        wrew = np.asarray([w[1] for w in want])
+        wdone = np.asarray([w[2] for w in want])
+        if not np.array_equal(done, wdone):
+            raise AssertionError(f"16a {name}: dones differ at "
+                                 f"{np.flatnonzero(done != wdone)[:8]}")
+        live = ~wdone
+        obs_err = float(np.abs(obs[live] - wobs[live]).max())
+        rew_err = float(np.abs(rew - wrew).max())
+        if obs_err > RL_TOL or (rew_err > RL_TOL if name == "pendulum"
+                                else rew_err != 0.0):
+            raise AssertionError(f"16a {name}: obs err {obs_err}, reward "
+                                 f"err {rew_err}")
+        bound = (np.full(4, 0.05) if name == "cartpole"
+                 else np.array([np.pi, 1.0]))
+        reset_ok = (np.all(new_steps[wdone] == 0)
+                    and np.all(np.abs(new_phys[wdone]) <= bound)
+                    and np.array_equal(new_steps[live], steps[live] + 1))
+        if not (wdone.sum() > 0 and live.sum() > 0 and reset_ok):
+            raise AssertionError(f"16a {name}: {int(wdone.sum())} done, the "
+                                 f"auto-reset {'held' if reset_ok else 'failed'}")
+        rep[name] = {"cases": n, "live": int(live.sum()),
+                     "done": int(wdone.sum()),
+                     "obs_max_abs_err": obs_err,
+                     "reward_max_abs_err": rew_err}
+    return rep
+
+
+def _rl_batch(n, t, seed):
+    rng = np.random.default_rng(seed)
+    return {
+        "obs": rng.normal(size=(n, t, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, (n, t)).astype(np.int64),
+        "rewards": np.ones((n, t), np.float32),
+        "dones": (rng.random((n, t)) < 0.05).astype(np.float32),
+        "logp_old": np.log(rng.uniform(0.3, 0.7, (n, t))).astype(np.float32),
+        "last_value": rng.normal(size=n).astype(np.float32),
+    }
+
+
+def rl_learner_parity(device="cuda", seed=RL_SEED) -> dict:
+    """16b: the same computations on ``device`` and on the CPU from the
+    same params and inputs, every loss, aux and leaf within 1e-5 of the
+    CPU's, relative to its largest magnitude: the batched v-trace loss and
+    its gradients at Anakin's E x T (with and without the APPO clip);
+    ``TorchLearner.update_minibatches`` on one 2 x 256-step batch; one SAC
+    update with its noise passed in."""
+    from ray_tpu_torch.rllib import PPOConfig, RLModuleSpec, SACModule
+    from ray_tpu_torch.rllib.algorithm import (
+        Adam, seeded_generator, to_tensors, tree_map, value_and_grad)
+    from ray_tpu_torch.rllib.impala import make_vtrace_loss
+    from ray_tpu_torch.rllib.ppo import TorchLearner, _init_policy
+    from ray_tpu_torch.rllib.sac import make_sac_update
+
+    rep = {}
+    on = lambda tree, dev: to_tensors(tree, dev)  # noqa: E731
+    params = _init_policy(seeded_generator("cpu", seed), 4, 2, 32)
+    params["wp"] = params["wp"] * 100.0  # ratios away from 1: clips bite
+    e, t = RL_VTRACE_SHAPE
+    batch = {k: torch.from_numpy(v) for k, v in
+             _rl_batch(e, t, seed + 1).items()}
+    for appo in (False, True):
+        loss_fn = make_vtrace_loss(gamma=0.99, c_bar=0.9,
+                                   use_appo_clip=appo)
+        out = {}
+        for dev in ("cpu", device):
+            loss, aux, grads = value_and_grad(
+                loss_fn, on(params, dev),
+                {k: v.to(dev) for k, v in batch.items()})
+            out[dev] = (loss, aux, grads)
+        errs = {"loss": _rel_err(out[device][0], out["cpu"][0]),
+                "aux": max(_rel_err(a, b) for a, b in
+                           zip(out[device][1], out["cpu"][1])),
+                "grads": _tree_rel(out[device][2], out["cpu"][2])}
+        if max(errs.values()) > RL_TOL:
+            raise AssertionError(f"16b vtrace appo={appo}: {errs}")
+        rep[f"vtrace_appo_{appo}".lower()] = errs
+
+    rng = np.random.default_rng(seed + 2)
+    n = RL_PPO_BATCH
+    ppo_batch = {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int32),
+        "logp_old": np.log(rng.uniform(0.3, 0.7, n)).astype(np.float32),
+        "advantages": rng.normal(size=n).astype(np.float32),
+        "returns": rng.normal(1.0, 1.0, n).astype(np.float32),
+    }
+    learners = {dev: TorchLearner(PPOConfig(device=dev, seed=seed), 4, 2)
+                for dev in ("cpu", device)}
+    learners[device].params = on(learners["cpu"].params, device)
+    learners[device].opt_state = learners[device].tx.init(
+        learners[device].params)
+    stats = {dev: lrn.update_minibatches(ppo_batch)
+             for dev, lrn in learners.items()}
+    errs = {"params": _tree_rel(learners[device].params,
+                                learners["cpu"].params)}
+    errs["stats"] = max(abs(stats[device][k] - stats["cpu"][k])
+                        / max(abs(stats["cpu"][k]), 1e-12)
+                        for k in stats["cpu"])
+    if max(errs.values()) > RL_TOL:
+        raise AssertionError(f"16b TorchLearner: {errs}")
+    rep["torch_learner"] = {**errs, "updates": 4 * (n // 128)}
+
+    mod = RLModuleSpec(SACModule, {"hidden": 64}).build(3, 1)
+    gen = seeded_generator("cpu", seed + 3)
+    sac_params = mod.init_state(gen)
+    b = RL_SAC_BATCH
+    sac_batch = {
+        "obs": torch.randn((b, 3), generator=gen),
+        "actions": torch.rand((b, 1), generator=gen) * 1.98 - 0.99,
+        "rewards": torch.randn(b, generator=gen) - 2.0,
+        "next_obs": torch.randn((b, 3), generator=gen),
+        "dones": torch.rand(b, generator=gen) < 0.1,
+    }
+    noise = {"next": torch.randn((b, 1), generator=gen),
+             "actor": torch.randn((b, 1), generator=gen)}
+    tx = Adam(3e-3)
+    update = make_sac_update(mod, tx, tx, 0.99, 0.01, -1.0)
+    outs = {}
+    for dev in ("cpu", device):
+        p = on(sac_params, dev)
+        la = torch.tensor(np.log(0.1), dtype=torch.float32, device=dev)
+        outs[dev] = update(p, tree_map(torch.clone, p), la, tx.init(p),
+                           tx.init(la),
+                           {k: v.to(dev) for k, v in sac_batch.items()},
+                           None, {k: v.to(dev) for k, v in noise.items()})
+    errs = {"params": _tree_rel(outs[device][0], outs["cpu"][0]),
+            "target": _tree_rel(outs[device][1], outs["cpu"][1]),
+            "log_alpha": _rel_err(outs[device][2], outs["cpu"][2]),
+            "stats": max(_rel_err(outs[device][5][k], outs["cpu"][5][k])
+                         for k in outs["cpu"][5])}
+    if max(errs.values()) > RL_TOL:
+        raise AssertionError(f"16b SAC update: {errs}")
+    rep["sac_update"] = errs
+    return rep
+
+
+def _d2h_copies(events) -> int:
+    return sum(e.count for e in events if "DtoH" in e.key)
+
+
+def anakin_run(device="cuda", seed=RL_SEED) -> dict:
+    """16c: Anakin at bench_rl's full sizes on one replica: 1 warm-up and
+    ``ANAKIN_TIMED`` timed ``training_step``s (env-steps/s, ms a step), one
+    profiled update (device ms, kernels, busy share) and one profiled
+    whole ``training_step`` (its device-to-host copies: at most
+    ``ANAKIN_MAX_D2H``); then the learning gate of
+    ``test_anakin_learns_cartpole``'s configuration."""
+    from torch.profiler import ProfilerActivity
+
+    from ray_tpu_torch.rllib.podracer import AnakinConfig
+    from ray_tpu_torch.rllib.podracer.bench_rl import _anakin_config
+
+    cfg = _anakin_config(1, quick=False, device=None if device == "cuda"
+                         else device)
+    algo = cfg.build()
+    if algo.devices[0].type != torch.device(device).type:
+        raise AssertionError(f"16c: Anakin on {algo.devices}")
+    algo.train()  # warm-up
+    _sync(device)
+    steps = [algo.train() for _ in range(ANAKIN_TIMED)]
+    rep = {"envs": cfg.num_envs_per_device, "unroll": cfg.unroll_length,
+           "updates_per_step": cfg.updates_per_step,
+           "env_steps_per_s": [s["env_steps_per_s"] for s in steps],
+           "ms_per_step": [s["num_env_steps_sampled"]
+                           / s["env_steps_per_s"] * 1e3 for s in steps]}
+    rep["ms_per_update"] = float(np.mean(rep["ms_per_step"])) \
+        / cfg.updates_per_step
+    if device == "cuda":
+        with kernel_trace(ProfilerActivity.CPU) as prof:
+            algo._one_update()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in events if "Memcpy" not in e.key
+                   and "Memset" not in e.key]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        rep["profiled_update"] = {
+            "device_ms": device_ms,
+            "kernels": sum(e.count for e in kernels),
+            "busy_share": device_ms / rep["ms_per_update"],
+            "d2h_copies": _d2h_copies(events),
+            "top_kernels_ms": [[e.key[:60], e.self_device_time_total / 1e3]
+                               for e in sorted(
+                                   kernels, key=lambda e: e.self_device_time_total,
+                                   reverse=True)[:5]]}
+        with kernel_trace(ProfilerActivity.CPU) as prof:
+            algo.train()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        rep["d2h_copies_per_step"] = _d2h_copies(events)
+        if not 1 <= rep["d2h_copies_per_step"] <= ANAKIN_MAX_D2H:
+            raise AssertionError(
+                f"16c: {rep['d2h_copies_per_step']} device-to-host copies "
+                f"in one training_step (at most {ANAKIN_MAX_D2H})")
+        if rep["profiled_update"]["kernels"] <= 0:
+            raise AssertionError("16c: the profiler saw no kernel")
+    # The learning gate (tests/test_rllib_podracer.py's configuration on
+    # one replica): greedy evaluate above the seeded threshold.
+    lc = AnakinConfig()
+    lc.num_envs_per_device, lc.unroll_length = 32, 16
+    lc.updates_per_step, lc.num_devices = 50, 1
+    lc.device = None if device == "cuda" else device
+    lc.seed = 0
+    learn = lc.build()
+    base = learn.evaluate(num_envs=16, seed=3)
+    threshold = base + 0.2 * (200.0 - base)
+    best, tried = base, 0
+    t0 = time.perf_counter()
+    for _ in range(6):
+        result = learn.train()
+        tried += 1
+        best = max(best, learn.evaluate(num_envs=16, seed=3))
+        if best > threshold:
+            break
+    if not (np.isfinite(result["loss"]) and best > threshold):
+        raise AssertionError(f"16c learning gate: best {best}, threshold "
+                             f"{threshold}, random {base}")
+    rep["learning"] = {"random_return": base, "threshold": threshold,
+                       "best_return": best, "training_steps": tried,
+                       "seconds": time.perf_counter() - t0}
+    return rep
+
+
+def _timed_sebulba(device):
+    """``Sebulba`` that times each runner's start (spawn to its address)
+    and counts the bytes its parameter broadcasts serialize."""
+    from ray_tpu_torch.rllib.podracer.sebulba import Sebulba
+
+    class _TimedSebulba(Sebulba):
+        def setup(self, config):
+            self.runner_start_s, self.broadcast_bytes = {}, 0
+            super().setup(config)
+            send = self._channel.broadcast
+
+            def counted(*a, **k):
+                nbytes = send(*a, **k)
+                self.broadcast_bytes += nbytes
+                return nbytes
+
+            self._channel.broadcast = counted
+
+        def _make_runner(self, i):
+            t0 = time.perf_counter()
+            actor = super()._make_runner(i)
+            self.runner_start_s.setdefault(i, time.perf_counter() - t0)
+            return actor
+
+    return _TimedSebulba
+
+
+def rl_cluster_phase(device="cuda", init_kwargs=None) -> dict:
+    """16d-f under a fresh ``ray_tpu_torch.init(num_cpus=4)``: Anakin
+    against the host-loop IMPALA (2 CPU runners, learner on the card);
+    Sebulba at bench_rl's sizes, its 2 runners' forwards on a quarter of
+    the card each; PPO with 2 CPU runners x 256 steps, learner on the
+    card.  Every process it starts is stopped before it returns."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.algorithm import tree_paths
+    from ray_tpu_torch.rllib.podracer import bench_rl
+
+    named = None if device == "cuda" else device
+    rep = {}
+    rt.init(num_cpus=4, **(init_kwargs or {}))
+    try:
+        if rt.cluster_resources().get("GPU") != 1.0:
+            raise AssertionError(f"detected {rt.cluster_resources()}")
+        (row,) = bench_rl.bench_anakin_vs_host_loop(quick=False,
+                                                    device=named)
+        if not row["ratio"] > 1.0:
+            raise AssertionError(f"16d: {row}")
+        rep["anakin_vs_host_loop"] = row
+
+        cfg = bench_rl.sebulba_config(quick=False, device=named)
+        t0 = time.perf_counter()
+        algo = _timed_sebulba(device)(cfg)
+        build_s = time.perf_counter() - t0
+        try:
+            info = rt.get([a.describe.remote()
+                           for a in algo.runner_group.actors], timeout=120)
+            for i in info:
+                if not i["forward_device"].startswith(
+                        torch.device(device).type):
+                    raise AssertionError(f"16e: a runner's forward: {i}")
+            if algo.device.type != torch.device(device).type:
+                raise AssertionError(f"16e: learner on {algo.device}")
+            algo.train()  # warm-up
+            bytes0 = algo.broadcast_bytes
+            runs = [algo.train() for _ in range(ANAKIN_TIMED)]
+            rep["sebulba"] = {
+                "runners": info, "build_s": build_s,
+                "runner_start_s": algo.runner_start_s,
+                "learner_steps_per_s": [r["learner_steps_per_s"]
+                                        for r in runs],
+                "env_steps": [r["num_env_steps_sampled"] for r in runs],
+                "staleness_mean": float(np.mean([r["staleness_mean"]
+                                                 for r in runs])),
+                "staleness_max": max(r["staleness_max"] for r in runs),
+                "broadcast_bytes_per_update": (
+                    (algo.broadcast_bytes - bytes0)
+                    / sum(r["num_learner_updates"] for r in runs)),
+                "loss": runs[-1]["loss"]}
+            if not all(np.isfinite(r["loss"]) for r in runs):
+                raise AssertionError(f"16e: losses {runs}")
+        finally:
+            algo.stop()
+        wait_card_free(rt)
+
+        ppo = PPOConfig(num_env_runners=2, rollout_steps=256,
+                        device=named, seed=RL_SEED).build()
+        try:
+            lrn = ppo.learner
+            upd_ms, inner = [], lrn.update_minibatches
+
+            def timed(batch):
+                t = time.perf_counter()
+                out = inner(batch)  # its float() stats end on the host
+                upd_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+
+            lrn.update_minibatches = timed
+            iter_s, results = [], []
+            for _ in range(PPO_ITERS):
+                t = time.perf_counter()
+                results.append(ppo.train())
+                iter_s.append(time.perf_counter() - t)
+            where = {str(x.device) for _, x in tree_paths(
+                {"params": lrn.params, "mu": lrn.opt_state["mu"],
+                 "nu": lrn.opt_state["nu"]})}
+            if not all(np.isfinite(r["total_loss"]) for r in results) or \
+                    {torch.device(d).type for d in where} != {
+                        torch.device(device).type}:
+                raise AssertionError(f"16f: losses {results}, tensors on "
+                                     f"{where}")
+            rep["ppo"] = {"update_minibatches_ms": upd_ms,
+                          "iteration_s": iter_s,
+                          "total_loss": [r["total_loss"] for r in results],
+                          "episode_return_mean": [
+                              r["episode_return_mean"] for r in results],
+                          "learner_tensors_on": sorted(where)}
+        finally:
+            ppo.stop()
+    finally:
+        rt.shutdown()
+    return rep
+
+
+def rl_phase(device="cuda", init_kwargs=None) -> dict:
+    """Phase 16: RLlib's environments and learners on the card (a, b, c in
+    this process), then its cluster paths (d, e, f)."""
+    rep = {"envs": rl_env_parity(device),
+           "learner_parity": rl_learner_parity(device),
+           "anakin": anakin_run(device)}
+    rep.update(rl_cluster_phase(device, init_kwargs))
+    return rep
+
+
+def report_rl_phase(card: str, rep: dict) -> None:
+    """Phase 16's readings: one line of numbers, then the report as JSON."""
+    an, host, seb, ppo = (rep["anakin"], rep["anakin_vs_host_loop"],
+                          rep["sebulba"], rep["ppo"])
+    prof = an.get("profiled_update", {})
+    print(f"rllib on {card}: 16c Anakin {np.mean(an['env_steps_per_s']):.1f} "
+          f"env-steps/s, {np.mean(an['ms_per_step']):.2f} ms a step of "
+          f"{an['updates_per_step']} updates; one update "
+          f"{an['ms_per_update']:.3f} ms wall, "
+          f"{prof.get('device_ms', float('nan')):.3f} ms device in "
+          f"{prof.get('kernels')} kernels (busy share "
+          f"{prof.get('busy_share', float('nan')):.3f}), "
+          f"{an.get('d2h_copies_per_step')} device-to-host copies a step; "
+          f"learned to {an['learning']['best_return']:.1f} (threshold "
+          f"{an['learning']['threshold']:.1f}) in "
+          f"{an['learning']['training_steps']} steps; 16d ratio "
+          f"{host['ratio']} ({host['value']} against {host['baseline']} "
+          f"env-steps/s); 16e Sebulba "
+          f"{np.mean(seb['learner_steps_per_s']):.2f} learner steps/s, "
+          f"staleness {seb['staleness_mean']:.2f}, "
+          f"{seb['broadcast_bytes_per_update']:.0f} broadcast bytes an "
+          f"update, runner starts {seb['runner_start_s']} s; 16f PPO "
+          f"{np.mean(ppo['update_minibatches_ms']):.1f} ms an "
+          f"update_minibatches, {np.mean(ppo['iteration_s']):.2f} s an "
+          f"iteration", flush=True)
+    print("rllib " + json.dumps(rep, default=str), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5560,6 +6048,12 @@ def main() -> int:
     vit_launches = vm["vit"]["launches"]
     moe_launches = vm["moe"]["launches"]
     lap(15)
+    # Phase 16: RLlib's learners and Anakin on the card, Sebulba's runners
+    # forwarding on card shares, PPO's learner on the card.  None of the
+    # four kernels is on this path.
+    rl = rl_phase()
+    report_rl_phase(card, rl)
+    lap(16)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor

@@ -6,7 +6,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the port's
 ViT and the MoE LM); ``resnet_params_from_jax`` does the same for ResNet's
 ``(params, state)``, ``mlp_params_from_jax`` for the MLP's list of layers,
 and ``stage_params_from_jax`` for one chunk of a pipelined GPT-2
-(``train.pipeline.gpt2_stage_modules``).  bf16 leaves
+(``train.pipeline.gpt2_stage_modules``), and ``rl_params_from_jax`` for
+RLlib's parameter dicts.  bf16 leaves
 (numpy's ``bfloat16`` extension dtype, which ``torch.from_numpy`` does not
 take) go through a ``uint16`` view, so no bit changes.
 """
@@ -112,3 +113,20 @@ def stage_params_from_jax(tree: Dict[str, object], cfg: GPT2Config, v: int,
     out["blocks"] = {k: tensor_from_numpy(a, dev)
                      for k, a in tree["blocks"].items()}
     return out
+
+
+def rl_params_from_jax(tree, device: DeviceLike = None):
+    """An RLlib params dict of the JAX package (numpy or JAX leaves), flat
+    or nested — PPO's ``w1/b1/wp/bp/wv/bv``, ``init_mlp``'s ``w{i}/b{i}``,
+    ``SACModule``'s ``pi/q1/q2``, a ``MultiRLModule``'s per-module trees,
+    IQL's ``v`` — → the same dict of f32 tensors on ``device`` (the card
+    unless it says "cpu"); a bare array (SAC's log-alpha) → a tensor."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.from_numpy(
+            np.array(node, dtype=np.float32, order="C")).to(dev)
+
+    return conv(tree)

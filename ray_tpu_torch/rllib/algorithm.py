@@ -153,3 +153,129 @@ def mlp_forward_np(params, x, n_layers: int):
         if i < n_layers - 1:
             x = np.tanh(x)
     return x
+
+
+# --------------------------------------------------- learner building blocks
+# Parameter trees are nested dicts of tensors (or a bare tensor, such as
+# SAC's log-alpha): the learners' stand-in for JAX pytrees.
+def tree_paths(tree, prefix=()):
+    """``[(path, leaf)]`` in sorted-key order, as ``jax.tree.leaves``."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += tree_paths(tree[k], prefix + (k,))
+        return out
+    return [(prefix, tree)]
+
+
+def tree_unflatten(paths, leaves):
+    if len(paths) == 1 and paths[0] == ():
+        return leaves[0]
+    out: Dict[str, Any] = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def tree_map(fn, *trees):
+    paths = [p for p, _ in tree_paths(trees[0])]
+    cols = [[leaf for _, leaf in tree_paths(t)] for t in trees]
+    return tree_unflatten(paths, [fn(*xs) for xs in zip(*cols)])
+
+
+def to_numpy(tree):
+    """A tree of tensors → the same tree of numpy arrays (on the host)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def to_tensors(tree, device):
+    """A tree of arrays or tensors → f32 tensors on ``device`` (copies)."""
+    import torch
+
+    return tree_map(
+        lambda a: torch.as_tensor(np.asarray(a, np.float32)).to(device)
+        if not isinstance(a, torch.Tensor)
+        else a.detach().to(device=device, dtype=torch.float32, copy=True),
+        tree,
+    )
+
+
+def seeded_generator(device, *key: int):
+    """A ``torch.Generator`` on ``device`` seeded from the integers ``key``
+    (``numpy.random.SeedSequence`` mixes them, so ``(seed, i)`` streams
+    do not alias as ``seed + i`` ones would) — the learners' stand-in for
+    ``jax.random.PRNGKey`` and ``fold_in``."""
+    import torch
+
+    seed = int(np.random.SeedSequence([int(k) for k in key])
+               .generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def value_and_grad(loss_fn, params, *args, wrt=None):
+    """``(loss, aux, grads)`` of ``loss_fn(params, *args) -> (loss, aux)``
+    with respect to ``params`` (or to the top-level subtrees named in
+    ``wrt``: the others enter as constants); ``grads`` has the shape of
+    what it is taken against."""
+    import torch
+
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, aux = loss_fn(live, *args)
+    target = live if wrt is None else {k: live[k] for k in wrt}
+    paths_leaves = tree_paths(target)
+    leaves = [leaf for _, leaf in paths_leaves]
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # A leaf the loss does not reach has a zero gradient, as in JAX.
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, leaves)]
+    return (loss.detach(), aux,
+            tree_unflatten([p for p, _ in paths_leaves], grads))
+
+
+class Adam:
+    """``optax.adam(lr)`` over a tree of tensors, as a pure function of
+    (params, grads, state): the same moments, bias correction and order of
+    operations (``torch.optim.Adam`` with betas (0.9, 0.999) and eps 1e-8
+    is the same update, but owns its parameters).  ``init`` gives the
+    state, ``step`` the new params and state; one ``_foreach`` launch per
+    operation over every leaf."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params) -> Dict[str, Any]:
+        import torch
+
+        zeros = lambda t: torch.zeros_like(t, dtype=torch.float32)  # noqa: E731
+        return {"count": 0, "mu": tree_map(zeros, params),
+                "nu": tree_map(zeros, params)}
+
+    def step(self, params, grads, state):
+        import torch
+
+        paths = [p for p, _ in tree_paths(params)]
+        p = [leaf for _, leaf in tree_paths(params)]
+        g = [leaf for _, leaf in tree_paths(grads)]
+        mu = [leaf for _, leaf in tree_paths(state["mu"])]
+        nu = [leaf for _, leaf in tree_paths(state["nu"])]
+        b1, b2 = self.b1, self.b2
+        mu = torch._foreach_add(torch._foreach_mul(g, 1 - b1),
+                                torch._foreach_mul(mu, b1))
+        nu = torch._foreach_add(
+            torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
+            torch._foreach_mul(nu, b2))
+        count = state["count"] + 1
+        # optax reckons the bias corrections in f32.
+        one, n = np.float32(1), np.float32(count)
+        mu_hat = torch._foreach_div(mu, float(one - np.float32(b1) ** n))
+        nu_hat = torch._foreach_div(nu, float(one - np.float32(b2) ** n))
+        upd = torch._foreach_div(
+            mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps))
+        new = torch._foreach_add(p, torch._foreach_mul(upd, -self.lr))
+        return tree_unflatten(paths, new), {
+            "count": count, "mu": tree_unflatten(paths, mu),
+            "nu": tree_unflatten(paths, nu)}

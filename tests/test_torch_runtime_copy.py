@@ -32,7 +32,10 @@ RUNTIME_DIRS = ("autoscaler", "collective", "core", "dag", "data", "job",
                 "scripts", "serve", "train", "tune", "util", "util/state")
 RUNTIME_FILES = ("__init__.py", "__main__.py", "_version.py", "api.py",
                  "collective/device_objects.py", "collective/p2p.py",
-                 "dashboard.py", "dashboard_ui.py")
+                 "dashboard.py", "dashboard_ui.py",
+                 # RLlib's host-side modules, copied with the name moves.
+                 "rllib/actor_manager.py", "rllib/connectors.py",
+                 "rllib/offline.py", "rllib/replay.py")
 
 # rel: (why it differs, digest of its pinned diff)
 DIVERGES = {

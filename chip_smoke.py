@@ -2,9 +2,9 @@
 """Drive ray_tpu_torch's serving and training paths, its runtime, its Data
 layer, its collective layer and Train, its DAGs, Tune and jobs, its
 pipeline-parallel trainer, its autoscaler, its parallel layer (ring and
-Ulysses attention, the sharded train step), its vision and MoE models and
-RLlib (the learners, Anakin and Sebulba) on one NVIDIA GPU and check
-them.
+Ulysses attention, the sharded train step), its vision and MoE models,
+RLlib (the learners, Anakin and Sebulba, DreamerV3) and its chaos
+injectors on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -121,19 +121,20 @@ Phases (none is caught: any failure exits non-zero):
      bytes) and the collective re-probe; (b) a ``TorchTrainer`` worker
      leasing the card (NCCL, world 1) trains phase 5's GPT-2 small (bf16,
      flash, remat, AdamW, B=32 x S=1024 from a dataset shard through
-     ``iter_batches``; 3 warm-up and 10 timed steps, reported each step, a
-     ``torch_ckpt`` checkpoint every 5): 24/12/12 flash launches every
+     ``iter_batches``; 3 warm-up and 5 timed steps, reported each step, a
+     ``torch_ckpt`` checkpoint after step 5): 24/12/12 flash launches every
      step in the worker, ``CUDA_VISIBLE_DEVICES="0"``, falling loss, the
      result's checkpoint restored bit for bit on the card; step ms and
      tokens/s beside phase 5's and their ratio, save ms; (c) the same loop
      at 2 layers and f32 hard-exits once at step 4, right after its
      checkpoint at step 3, and resumes on the card: losses from step 4 on
-     equal an uninterrupted run's at 1e-5; (d) two workers leasing half
+     equal, at 1e-5, those of the same steps run uninterrupted in this
+     process on the card; (d) two workers leasing half
      the card each (gloo over CUDA tensors), each on half of a seeded
      batch, gradients MEAN-allreduced through a collective group of the
      loop (2 layers, f32, SGD, 5 steps): both ranks' parameters equal,
-     and equal a one-worker run on the whole batch at 1e-4, every rank's
-     flash launches counted.
+     and equal, at 1e-4, those of the same SGD steps on the whole batch in
+     this process, every rank's flash launches counted.
  12. compiled DAGs, Tune, a job, the CLI and the dashboard, under a fresh
      ``ray_tpu_torch.init(num_cpus=8)``: (a) GPT-2 small (bf16, flash) cut
      at layer 6 over two half-card actors, ``InputNode`` -> stage A ->
@@ -141,15 +142,16 @@ Phases (none is caught: any failure exits non-zero):
      the edge: the greedy ids equal one ``gpt2_apply`` here and the same
      stages through ``.remote()``, 6 flash launches a stage a call; at
      f32 and 2 layers the logits within 1e-4; ms per execute against the
-     ``.remote()`` chain at that payload and at one element (50 calls
+     ``.remote()`` chain at that payload and at one element (20 calls
      after 5), the edge's host-copy share; an in-graph allreduce of two
      half-card actors' CUDA tensors (f32 and bf16, 1 and 64 MiB) by the
      host path and through a gloo ``DistGroup``: the sum in participant
      order, exact at f32, 2e-2 at bf16, GB/s; (b) a ``Tuner`` over AdamW's
      lr (two trials at once), each trial a ``TorchTrainer`` worker on half
      the card training GPT-2 small (bf16, flash, remat, B=8 x S=1024, 6
-     steps): each trial's losses equal a direct fit's at 1e-5, 24/12/12
-     launches a step, the best trial the one with the lower last loss;
+     steps): each trial's losses equal those of its steps run here at
+     1e-5, 24/12/12 launches a step, the best trial the one with the
+     lower last loss;
      (c) ``python -m ray_tpu_torch job submit`` of an entrypoint that
      joins with ``address="auto"`` and serves GPT-2 small from one
      ``num_gpus=1`` task (4 prompts, 16 greedy tokens): ``SUCCEEDED``, the
@@ -245,6 +247,32 @@ Phases (none is caught: any failure exits non-zero):
      staleness, broadcast bytes, each runner's start; (f) PPO with 2 CPU
      runners x 256 steps, 3 iterations: finite losses, every learner
      tensor on ``cuda``, ms an ``update_minibatches`` and s an iteration.
+ 17. DreamerV3 and the chaos injectors: (a) DreamerV3 at ``_Hyper``'s
+     defaults (deter 64, 8 x 8 latents, hidden 64, B=8 x T=16, horizon 8)
+     from the same params, batch and noise on the card and on the CPU,
+     CartPole and Pendulum: the world-model loss, its metrics and every
+     gradient leaf, the actor-critic loss and every gradient leaf, and
+     one whole ``train_once`` (clip and Adam) within 1e-5 of the CPU's,
+     relative to each leaf's largest magnitude, in f64 every number and
+     in f32 all but the parameters after Adam (printed); then, under a
+     fresh ``ray_tpu_torch.init(num_cpus=4)``,
+     ``test_dreamer_world_model_learns_cartpole``'s configuration with
+     its learner on the card for 6 ``train()`` calls (1 CPU runner x 128
+     steps, min_buffer 256, train_ratio 4, B=8 x T=12): the world-model
+     loss finite and falling, ``imag_return`` finite, every learner
+     tensor on ``cuda``; ms a ``train_once`` (median of 10), one profiled
+     update (kernels, device ms, busy share, exactly one device-to-host
+     copy: the return spread's EMA), s a ``train()``; (b) phase 13a's
+     ``PipelinedTrainer`` (two 6-layer GPT-2 small stages, each leasing
+     half the card, 1F1B, B=8 x S=1024 in 4 microbatches, a checkpoint
+     every 2 steps, ``max_failures=1``, 5 steps) with stage 1 killed by
+     ``devtools.chaos.KilledStageActor`` once 3 steps completed: the
+     trainer restores and respawns it by itself (one restart), the new
+     stage process under ``CUDA_VISIBLE_DEVICES="0"`` with 48/24/24 flash
+     launches a step it ran, and every step's loss, the re-run ones
+     included, within 2e-3 of 13a's sequential run; the seconds from the
+     kill to the next completed step and from the respawn request to the
+     new stage's constructor.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -2743,7 +2771,8 @@ GLOO_SIZES = (1 << 20, 8 << 20, 64 << 20)
 COLL_RANKS = 4
 COLL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 COLL_SEED = SEED + 60
-# 11b: phase 5's model, batch and steps; a checkpoint every 5 steps.
+# 11b: phase 5's model and batch, 3 + 5 steps; a checkpoint every 5 steps
+# (one, after step 5).
 TRAIN_CKPT_EVERY = 5
 # 11c: 8 steps at 2 layers, f32, a checkpoint every 4; the first attempt
 # hard-exits as step 4 starts, right after its checkpoint at step 3.
@@ -3443,11 +3472,39 @@ def trainer_full_width(rt, rd, cfg, batch: int, seq: int, warmup: int,
             "backend": summary["torch_backend"]}
 
 
+def _train_here(config: dict, rows, device):
+    """``_train_loop``'s steps at world 1, in this process: the same init,
+    optimizer and batch (the first ``config["batch"]`` rows, as the loop's
+    ``iter_batches`` gives them every step).  Returns each step's loss and
+    the parameters at the end."""
+    cfg = GPT2Config(**config["cfg"])
+    fam = model_family(cfg)
+    params = fam.init(torch.Generator(device).manual_seed(config["seed"]),
+                      cfg, device=device)
+    params.requires_grad_(True)
+    if config["optimizer"] == "adamw":
+        opt = torch.optim.AdamW(params.parameters(), lr=config["lr"],
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+    else:
+        opt = torch.optim.SGD(params.parameters(), lr=config["lr"])
+    tokens = torch.from_numpy(np.stack(rows[:config["batch"]])).to(device)
+    losses = []
+    for _ in range(config["steps"]):
+        opt.zero_grad(set_to_none=True)
+        loss = fam.loss(params, tokens, cfg)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss))
+    return losses, {k: v.detach() for k, v in params.state_dict().items()}
+
+
 def trainer_resume(rt, rd, cfg, seq: int, device) -> dict:
     """11c: the same loop at 2 layers and f32 with ``max_failures=1``; the
     first attempt hard-exits at step 4, right after its checkpoint at step
     3; the second restores on the card.  Its losses from step 4 on must
-    equal an uninterrupted run's at 1e-5 relative."""
+    equal, at 1e-5 relative, the same steps run uninterrupted in this
+    process on the card."""
     marker = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_fail_"),
                           "failed_once")
     small = dataclasses.replace(cfg, n_layer=2, dtype="float32")
@@ -3458,12 +3515,14 @@ def trainer_resume(rt, rd, cfg, seq: int, device) -> dict:
               "marker": marker, "device": device}
     rows = _token_rows(RESUME_BATCH, seq, cfg.vocab_size, SEED + 71)
     resumed = _fit(rt, rd, config=config, rows=rows, max_failures=1)
-    clean = _fit(rt, rd, config={**config, "fail_at": None}, rows=rows)
+    clean, _ = _train_here(config, rows, device)
+    if device != "cpu":
+        torch.cuda.empty_cache()
     # The first attempt's last reports may die with it, unpolled; the
     # second attempt's start at step 4 shows its checkpoint was restored.
-    got, want = _steps(resumed), _steps(clean)
+    got = _steps(resumed)
     after = range(RESUME_FAIL_AT, RESUME_STEPS)
-    errs = {s: abs(got[s]["loss"] - want[s]["loss"]) / abs(want[s]["loss"])
+    errs = {s: abs(got[s]["loss"] - clean[s]) / abs(clean[s])
             for s in after if s in got}
     if (not os.path.exists(marker) or len(errs) != len(after)
             or max(errs.values()) > 1e-5
@@ -3471,17 +3530,17 @@ def trainer_resume(rt, rd, cfg, seq: int, device) -> dict:
         raise AssertionError(f"11c: marker {os.path.exists(marker)}, "
                              f"steps {sorted(got)}, errors {errs}")
     return {"losses_resumed": [got[s]["loss"] for s in sorted(got)],
-            "losses_clean": [want[s]["loss"] for s in sorted(want)],
+            "losses_clean": clean,
             "max_rel_err_from_step_4": max(errs.values()),
-            "fit_s_resumed": resumed.wall_s, "fit_s_clean": clean.wall_s}
+            "fit_s_resumed": resumed.wall_s}
 
 
 def trainer_data_parallel(rt, rd, cfg, seq: int, device) -> dict:
     """11d: two workers leasing half the card each (gloo, CUDA tensors),
     each on its half of a seeded batch, gradients MEAN-allreduced through a
     collective group of the loop; SGD, 2 layers, f32.  Both ranks'
-    parameters must be equal, and equal a one-worker run on the whole batch
-    at 1e-4 relative."""
+    parameters must be equal, and equal those of the same SGD steps on the
+    whole batch in this process at 1e-4 relative."""
     small = dataclasses.replace(cfg, n_layer=2, dtype="float32")
     config = {"cfg": dataclasses.asdict(small), "seed": SEED + 80,
               "optimizer": "sgd", "lr": DP_LR, "warmup": 0,
@@ -3489,15 +3548,13 @@ def trainer_data_parallel(rt, rd, cfg, seq: int, device) -> dict:
     rows = _token_rows(DP_BATCH, seq, cfg.vocab_size, SEED + 81)
     two = _fit(rt, rd, config={**config, "batch": DP_BATCH // 2}, rows=rows,
                parallelism=2, workers=2, gpus=0.5)
-    one = _fit(rt, rd, config={**config, "batch": DP_BATCH}, rows=rows,
-               parallelism=2, gpus=0.5)
+    losses_one, b = _train_here({**config, "batch": DP_BATCH}, rows, device)
     from ray_tpu_torch.train.torch_ckpt import restore_sharded
 
     fam = model_family(small)
     like = {"model": fam.init(torch.Generator(device).manual_seed(SEED + 80),
                               small, device=device).state_dict()}
     a = restore_sharded(like, two.checkpoint.path, device=device)["model"]
-    b = restore_sharded(like, one.checkpoint.path, device=device)["model"]
     rel = {k: ((a[k] - b[k]).abs().max() / b[k].abs().max()).item()
            for k in b}
     ranks = two.metrics["ranks"]
@@ -3523,10 +3580,8 @@ def trainer_data_parallel(rt, rd, cfg, seq: int, device) -> dict:
             "losses_two": [m["loss"] for m in
                            sorted(_steps(two).values(),
                                   key=lambda m: m["step"])],
-            "losses_one": [m["loss"] for m in
-                           sorted(_steps(one).values(),
-                                  key=lambda m: m["step"])],
-            "fit_s_two": two.wall_s, "fit_s_one": one.wall_s,
+            "losses_one": losses_one,
+            "fit_s_two": two.wall_s,
             "backend": two.metrics["torch_backend"]}
 
 
@@ -3570,9 +3625,9 @@ def report_train_phase(card: str, tp: dict, phase5: dict) -> None:
           f"{[(round(s['host_copy_ms'], 1), round(s['write_ms'], 1)) for s in tr['saves']]}"
           f"; 11c resumed losses within "
           f"{tp['resume']['max_rel_err_from_step_4']:.2e} of an "
-          f"uninterrupted run; 11d two half-card ranks within "
-          f"{tp['data_parallel']['max_rel_err_vs_one_worker']:.2e} of one "
-          f"worker; gloo GB/s at {big} B: "
+          f"uninterrupted run here; 11d two half-card ranks within "
+          f"{tp['data_parallel']['max_rel_err_vs_one_worker']:.2e} of the "
+          f"whole batch's steps here; gloo GB/s at {big} B: "
           f"{ {k.split()[0]: round(v, 3) for k, v in gl.items() if k.endswith(str(big))} }",
           flush=True)
     print("collective_train " + json.dumps(tp), flush=True)
@@ -3584,7 +3639,7 @@ def report_train_phase(card: str, tp: dict, phase5: dict) -> None:
 # 4 x 1024 x 768 bf16 (6.3 MB, under the channels' 8 MiB default).
 DAG_BATCH, DAG_SEQ = 4, 1024
 DAG_SEED = SEED + 90
-DAG_CALLS, DAG_WARMUP = 50, 5
+DAG_CALLS, DAG_WARMUP = 20, 5
 # The f32 check: 2 layers at full width, B=1 x S=128, logits compared.
 DAG_F32_SEQ = 128
 DAG_ALLREDUCE_SIZES = (1 << 20, 64 << 20)
@@ -3893,8 +3948,8 @@ def dag_allreduce(rt, sizes, calls: int, device) -> dict:
 
 def _trial_fit(config):
     """One ``TorchTrainer`` fit of ``_train_loop`` for 12b: one worker
-    leasing half the card, ``config["lr"]`` for AdamW.  A Tune trial and
-    the direct fit in this process run this same function."""
+    leasing half the card, ``config["lr"]`` for AdamW; a Tune trial runs
+    it."""
     import ray_tpu_torch.data as rd
     import ray_tpu_torch.train as rtrain
 
@@ -3943,8 +3998,9 @@ def _tune_trainable(config):
 
 def tune_trials(rt, cfg, batch: int, seq: int, steps: int, device) -> dict:
     """12b: a ``Tuner`` over AdamW's lr, two trials at once, each a
-    ``TorchTrainer`` on half the card.  Each trial's losses must equal a
-    direct fit's of its config at 1e-5 relative, 24/12/12 launches a step
+    ``TorchTrainer`` on half the card.  Each trial's losses must equal, at
+    1e-5 relative, the same steps of its config run in this process on the
+    card, 24/12/12 launches a step
     (remat), the best trial the one with the lower last loss, and the
     leases back after."""
     from ray_tpu_torch import tune
@@ -3995,31 +4051,33 @@ def tune_trials(rt, cfg, batch: int, seq: int, steps: int, device) -> dict:
     if best.config["lr"] != lower:
         problems.append(f"best trial lr {best.config['lr']}, lower last "
                         f"loss at {lower}")
-    # The direct fits, two at once from this process's threads, as the
-    # trials ran.
+    # Each trial's steps run here on the card, from the same init, rows
+    # and optimizer as the trial's worker.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(TUNE_LRS)) as pool:
-        direct_fits = dict(zip(TUNE_LRS, pool.map(
-            lambda lr: _trial_fit({**base, "lr": lr}), TUNE_LRS)))
+    direct = {lr: _train_here(
+        {"cfg": base["cfg"], "seed": TUNE_SEED, "optimizer": "adamw",
+         "lr": lr, "batch": batch, "steps": steps},
+        _token_rows(batch, seq, cfg.vocab_size, TUNE_SEED + 1), device)[0]
+        for lr in TUNE_LRS}
     direct_s = time.perf_counter() - t0
-    wait_card_free(rt)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
     for lr, t in trials.items():
         if t["visible"] != "0" or t["backend"] != "gloo":
             problems.append(f"lr {lr}: lease/backend {t}")
-        direct = _steps(direct_fits[lr])
-        t["direct_losses"] = [direct[s]["loss"] for s in sorted(direct)]
+        t["direct_losses"] = direct[lr]
         t["max_rel_err_vs_direct"] = max(
             abs(x - y) / abs(y)
             for x, y in zip(t["losses"], t["direct_losses"]))
         if len(t["direct_losses"]) != steps or \
                 t["max_rel_err_vs_direct"] > 1e-5:
-            problems.append(f"lr {lr}: losses {t['losses']} against a "
-                            f"direct fit's {t['direct_losses']}")
+            problems.append(f"lr {lr}: losses {t['losses']} against the "
+                            f"same steps here {t['direct_losses']}")
     if problems:
         raise AssertionError(f"12b: {problems}")
     return {"trials": {str(lr): t for lr, t in trials.items()},
             "best_lr": best.config["lr"], "fit_s": fit_s,
-            "direct_fits_s": direct_s,
+            "direct_steps_s": direct_s,
             "overlap_s": overlap, "lease_free_s": lease_s,
             "launches_per_step": want_launches}
 
@@ -4238,6 +4296,7 @@ class _CountedPipelineStage(train_pipeline.PipelineStage._cls):
 
     def __init__(self, *args):
         super().__init__(*args)
+        self._started_at = time.time()
         reset_counters()
         self._d2h_ms = []
         if torch.cuda.is_available():
@@ -4255,6 +4314,7 @@ class _CountedPipelineStage(train_pipeline.PipelineStage._cls):
         device = next(iter(self.chunks.values())).device
         cuda = device.type == "cuda"
         rep = {"pid": os.getpid(), "device": str(device),
+               "started_at": self._started_at,
                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                "launches": flash_counts(), "d2h_ms": list(self._d2h_ms),
                "peak_mb": (torch.cuda.max_memory_allocated(device) / 2 ** 20
@@ -5751,6 +5811,397 @@ def report_rl_phase(card: str, rep: dict) -> None:
           f"iteration", flush=True)
     print("rllib " + json.dumps(rep, default=str), flush=True)
 
+# ----------------------------------------------------------------- phase 17
+DREAMER_SEED = SEED + 200
+# 17a: card against CPU, each number relative to its leaf's largest
+# magnitude.
+DREAMER_TOL = 1e-5
+DREAMER_TIMED = 10  # timed updates of the trained learner
+DREAMER_TRAIN = 6  # train() calls of test_dreamer_world_model_learns_cartpole
+# 17b: stage 1 is killed once this many steps have completed; the trainer
+# checkpoints every CHAOS_CKPT_EVERY steps.  The trainer's fit notices a
+# dead stage when the surviving stage's receive times out, so the receive
+# timeout bounds the recovery's start: CHAOS_RECV_S, against 13a's 300 s.
+CHAOS_KILL_AFTER, CHAOS_CKPT_EVERY, CHAOS_RECV_S = 3, 2, 10.0
+
+
+def _dreamer_inputs(hp, env, seed: int):
+    """The learner's init from a seeded generator, a seeded batch of
+    ``hp.batch_size`` x ``hp.seq_len`` transitions and one update's draws,
+    all on the CPU."""
+    from ray_tpu_torch.rllib import dreamerv3 as dv
+    from ray_tpu_torch.rllib.algorithm import seeded_generator
+
+    probe = env()
+    discrete = hasattr(probe, "num_actions")
+    act = probe.num_actions if discrete else probe.action_size
+    gen = seeded_generator("cpu", seed)
+    wm = dv.init_world_model(gen, hp, probe.observation_size, act)
+    ac = dv.init_actor_critic(gen, hp, act, discrete)
+    rng = np.random.default_rng(seed)
+    b, t = hp.batch_size, hp.seq_len
+    actions = (np.eye(act, dtype=np.float32)[rng.integers(act, size=(b, t))]
+               if discrete else
+               rng.uniform(-1, 1, (b, t, act)).astype(np.float32))
+    dones = (rng.random((b, t)) < 0.05).astype(np.float32)
+    batch = {
+        "obs": rng.normal(size=(b, t, probe.observation_size)).astype(
+            np.float32),
+        "actions": actions,
+        "rewards": rng.normal(size=(b, t)).astype(np.float32),
+        "dones": dones,
+        "is_first": np.concatenate([np.ones((b, 1), np.float32),
+                                    dones[:, :-1]], 1),
+    }
+    noise = {"wm": dv.gumbel((t, b, hp.stoch, hp.classes), gen),
+             "ac": dv.ac_noise(hp, discrete, act, b * t, gen)}
+    return wm, ac, batch, noise, discrete, act
+
+
+def dreamer_parity(device="cuda", seed=DREAMER_SEED) -> dict:
+    """17a: DreamerV3's update on ``device`` and on the CPU from the same
+    params, batch and noise, CartPole and Pendulum, at ``_Hyper``'s
+    defaults: the world-model loss, its metrics and every gradient leaf,
+    the actor-critic loss, its return statistics and every gradient leaf
+    (from the world model after its step), and one whole ``train_once``
+    (both clipped Adam steps).  In f64 every number is held at
+    ``DREAMER_TOL``; in f32 all but the parameters after Adam, which are
+    printed: Adam's first steps divide each gradient by its own magnitude,
+    so an element whose gradient is near Adam's eps turns a rounding of
+    the gradient into a visible change of its step."""
+    from ray_tpu_torch.rllib import CartPole, Pendulum
+    from ray_tpu_torch.rllib import dreamerv3 as dv
+    from ray_tpu_torch.rllib.algorithm import tree_map, value_and_grad
+
+    hp = dv._Hyper()
+    rep = {}
+    for name, env in (("cartpole", CartPole), ("pendulum", Pendulum)):
+        wm, ac, batch, noise, discrete, act = _dreamer_inputs(hp, env, seed)
+        for dtype in (torch.float64, torch.float32):
+            out = {}
+            for dev in ("cpu", device):
+                on = lambda tree: tree_map(  # noqa: E731
+                    lambda x: torch.as_tensor(x).to(dev, dtype), tree)
+                w, a, b, nz = on(wm), on(ac), on(batch), on(noise)
+                wm_tx, ac_tx = dv.ClippedAdam(hp.wm_lr), dv.ClippedAdam(
+                    hp.ac_lr)
+                wl, (feat, met), wg = value_and_grad(
+                    dv.make_wm_loss(hp), w, b, None, nz["wm"])
+                w_next, _ = wm_tx.step(w, wg, wm_tx.init(w))
+                _, _, update = dv.make_ac_update(hp, discrete, act)
+                al, ag, ret_mean, new_std = update(
+                    w_next, a, feat.reshape(-1, feat.shape[-1]).detach(),
+                    1.0, noise=nz["ac"])
+                train_once = dv.make_train_once(hp, discrete, act, wm_tx,
+                                                ac_tx)
+                tw, ta, _, _, t_std, t_met = train_once(
+                    w, a, wm_tx.init(w), ac_tx.init(a), b, 1.0, None, nz)
+                out[dev] = {"wm_loss": wl, "metrics": met, "wm_grads": wg,
+                            "ac_loss": al, "ac_grads": ag,
+                            "ret": (ret_mean, new_std), "wm_after": tw,
+                            "ac_after": ta, "once": (t_std, t_met)}
+            c, g = out["cpu"], out[device]
+            errs = {
+                "wm_loss": _rel_err(g["wm_loss"], c["wm_loss"]),
+                "wm_metrics": max(_rel_err(g["metrics"][k], c["metrics"][k])
+                                  for k in c["metrics"]),
+                "wm_grads": _tree_rel(g["wm_grads"], c["wm_grads"]),
+                "ac_loss": _rel_err(g["ac_loss"], c["ac_loss"]),
+                "ac_returns": max(_rel_err(x, y)
+                                  for x, y in zip(g["ret"], c["ret"])),
+                "ac_grads": _tree_rel(g["ac_grads"], c["ac_grads"]),
+                "train_once_metrics": max(
+                    [_rel_err(g["once"][0], c["once"][0])]
+                    + [_rel_err(g["once"][1][k], c["once"][1][k])
+                       for k in c["once"][1]]),
+                "wm_params": _tree_rel(g["wm_after"], c["wm_after"]),
+                "ac_params": _tree_rel(g["ac_after"], c["ac_after"]),
+            }
+            gated = {k: v for k, v in errs.items()
+                     if dtype == torch.float64 or not k.endswith("_params")}
+            if not max(gated.values()) <= DREAMER_TOL:
+                raise AssertionError(f"17a {name} {dtype}: {errs} (tolerance "
+                                     f"{DREAMER_TOL} on {sorted(gated)})")
+            rep[f"{name} {str(dtype)[6:]}"] = errs
+    return rep
+
+
+def dreamer_train(rt, device="cuda") -> dict:
+    """17a: ``test_dreamer_world_model_learns_cartpole``'s configuration
+    with its learner on ``device``: ``DREAMER_TRAIN`` ``train()`` calls
+    (the world-model loss finite and falling, ``imag_return`` finite,
+    every learner tensor on ``device``), then ``DREAMER_TIMED`` timed
+    updates as ``training_step`` makes them (a sampled batch to the card,
+    ``train_once``, the read of the return spread) and one profiled
+    (kernels, device ms, busy share, device-to-host copies: exactly one)."""
+    from torch.profiler import ProfilerActivity
+
+    from ray_tpu_torch.rllib import CartPole, DreamerV3Config
+    from ray_tpu_torch.rllib.algorithm import to_tensors, tree_paths
+
+    algo = (DreamerV3Config().environment(CartPole)
+            .env_runners(1, rollout_steps=128).debugging(seed=7)
+            .training(min_buffer=256, train_ratio=4, batch_size=8,
+                      seq_len=12,
+                      device=None if device == "cuda" else device)
+            .build())
+    try:
+        hp = algo.hp
+        results, train_s = [], []
+        for _ in range(DREAMER_TRAIN):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            train_s.append(time.perf_counter() - t0)
+        losses = [r["wm_loss"] for r in results if "wm_loss" in r]
+        where = {x.device.type for tree in (
+            algo.wm, algo.ac, algo.wm_opt["mu"], algo.wm_opt["nu"],
+            algo.ac_opt["mu"], algo.ac_opt["nu"]) for _, x in tree_paths(tree)}
+        last = results[-1]
+        if (len(losses) < 4 or not all(np.isfinite(losses))
+                or not losses[-1] < losses[0]
+                or not np.isfinite(last["imag_return"])
+                or where != {torch.device(device).type}):
+            raise AssertionError(f"17a: world-model losses {losses}, last "
+                                 f"result {last}, tensors on {where}")
+
+        def update():
+            batch = to_tensors(algo.buffer.sample(hp.batch_size, hp.seq_len),
+                               algo.device)
+            (algo.wm, algo.ac, algo.wm_opt, algo.ac_opt, new_std,
+             _) = algo._train_once(algo.wm, algo.ac, algo.wm_opt,
+                                   algo.ac_opt, batch, algo.ret_std,
+                                   algo._gen)
+            algo.ret_std = 0.99 * algo.ret_std + 0.01 * float(new_std)
+
+        for _ in range(2):
+            update()
+        update_ms = []
+        for _ in range(DREAMER_TIMED):
+            _sync(device)
+            t0 = time.perf_counter()
+            update()
+            update_ms.append((time.perf_counter() - t0) * 1e3)
+        rep = {"wm_losses": losses, "imag_return": last["imag_return"],
+               "episode_return_mean": [r["episode_return_mean"]
+                                       for r in results],
+               "train_s": train_s, "update_ms": update_ms,
+               "update_ms_median": float(np.median(update_ms)),
+               "learner_tensors_on": sorted(where)}
+        if torch.device(device).type == "cuda":
+            with kernel_trace(ProfilerActivity.CPU) as prof:
+                update()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = [e for e in events if "Memcpy" not in e.key
+                       and "Memset" not in e.key]
+            device_ms = sum(e.self_device_time_total for e in events) / 1e3
+            rep["profiled_update"] = {
+                "kernels": sum(e.count for e in kernels),
+                "device_ms": device_ms,
+                "busy_share": device_ms / rep["update_ms_median"],
+                "d2h_copies": _d2h_copies(events),
+                "top_kernels_ms": [
+                    [e.key[:60], e.self_device_time_total / 1e3]
+                    for e in sorted(kernels,
+                                    key=lambda e: e.self_device_time_total,
+                                    reverse=True)[:5]]}
+            if rep["profiled_update"]["d2h_copies"] != 1 or \
+                    rep["profiled_update"]["kernels"] <= 0:
+                raise AssertionError(f"17a: {rep['profiled_update']} (one "
+                                     "device-to-host copy an update)")
+        return rep
+    finally:
+        algo.stop()
+
+
+class _ChaosPipelinedTrainer(_CountedPipelinedTrainer):
+    """13a's counted trainer that logs every completed step (re-runs
+    included) with its time, kills stage 1 through
+    ``devtools.chaos.KilledStageActor`` once ``CHAOS_KILL_AFTER`` steps
+    have completed (and waits until the stage no longer answers, so the
+    next step meets a dead stage), and notes each stage spawn."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.step_log, self.spawns = [], []
+        self.kill_at, self.killed = None, None
+
+    def _spawn_stage(self, i: int):
+        self.spawns.append({"stage": i, "at": time.time(),
+                            "restarts": self._restarts})
+        return super()._spawn_stage(i)
+
+    def _record_step_metrics(self, stats):
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.devtools import chaos
+
+        bubble = super()._record_step_metrics(stats)
+        losses = stats[-1].get("losses") or []
+        self.step_log.append({"step": stats[0]["step"],
+                              "loss": sum(losses) / len(losses),
+                              "at": time.perf_counter(),
+                              "restarts": self._restarts})
+        if self.kill_at is None and len(self.step_log) == CHAOS_KILL_AFTER:
+            victim = self.stages[1]
+            self.killed = rt.get(victim.report.remote((1, 1, 1)),
+                                 timeout=120)
+            self.kill_at = time.perf_counter()
+            chaos.KilledStageActor(self, stage=1).apply()
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    rt.get(victim.ping.remote(), timeout=5)
+                except Exception:  # noqa: BLE001 — the kill landed
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError("17b: stage 1 still answers 60 s "
+                                         "after its kill")
+                time.sleep(0.1)
+        return bubble
+
+
+def pipeline_chaos(rt, cfg, batch: int, seq: int, micro: int, steps: int,
+                   stage_resources: dict, device, reference=None) -> dict:
+    """17b: 13a's pipelined run with stage 1 killed after
+    ``CHAOS_KILL_AFTER`` steps; the trainer recovers it by itself from its
+    last checkpoint.  One restart; the new stage process's lease and
+    launches; every completed step's loss, re-runs included, against
+    ``reference`` (13a's sequential losses; run here when not given)."""
+    from ray_tpu_torch.train import PipelineConfig, RunConfig
+    from ray_tpu_torch.train.config import FailureConfig
+
+    data = _pipe_data(cfg.vocab_size, batch, seq, PIPE_SEED)
+    builder = train_pipeline.gpt2_stage_modules(cfg, 2, seed=PIPE_SEED)
+    if reference is None:
+        ref, _ = train_pipeline.reference_run(
+            builder, 2, data, steps, num_microbatches=micro,
+            learning_rate=PIPE_LR, device=device)
+        reference = list(ref)
+        _sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    wait_card_free(rt)
+    tr = _ChaosPipelinedTrainer(
+        builder,
+        pipeline_config=PipelineConfig(
+            num_stages=2, num_microbatches=micro,
+            recv_timeout_s=CHAOS_RECV_S,
+            checkpoint_every_n_steps=CHAOS_CKPT_EVERY),
+        data_per_step=data, num_steps=steps, learning_rate=PIPE_LR,
+        run_config=RunConfig(failure_config=FailureConfig(max_failures=1)),
+        resources_per_stage=stage_resources)
+    try:
+        t0 = time.perf_counter()
+        res = tr.fit()
+        fit_s = time.perf_counter() - t0
+        if res.error is not None:
+            raise AssertionError(f"17b: fit failed: {res.error!r}")
+        stages = rt.get([s.report.remote((1, 1, 1)) for s in tr.stages],
+                        timeout=300)
+    finally:
+        tr.shutdown()
+    log, new = tr.step_log, stages[1]
+    after = [e for e in log if e["at"] > tr.kill_at]
+    errs = [_rel(e["loss"], reference[e["step"]]) for e in log]
+    per_step = {k: (cfg.n_layer // 2) * micro * n
+                for k, n in (("flash_fwd", 2), ("flash_dq", 1),
+                             ("flash_dkv", 1))}
+    want = {k: v * len(after) for k, v in per_step.items()}
+    respawn = [s for s in tr.spawns if s["restarts"] > 0]
+    final = [m["loss"] for m in res.metrics_history]
+    problems = []
+    if tr._restarts != 1 or len(respawn) != 1 or respawn[0]["stage"] != 1:
+        problems.append(f"restarts {tr._restarts}, spawns {tr.spawns}")
+    if new["pid"] == tr.killed["pid"]:
+        problems.append(f"stage 1 is still pid {new['pid']}")
+    if "GPU" in stage_resources and new["visible"] != "0":
+        problems.append(f"the new stage's lease {new['visible']!r}")
+    if new["launches"] != want or not all(new["launches"].values()):
+        problems.append(f"the new stage launched {new['launches']}, want "
+                        f"{want} ({len(after)} steps)")
+    if len(final) != steps or not all(np.isfinite([e["loss"] for e in log])):
+        problems.append(f"final losses {final}, log {log}")
+    if max(errs) > PIPE_TOL:
+        problems.append(f"losses {[(e['step'], e['loss']) for e in log]} "
+                        f"against {reference}: {errs} (tolerance "
+                        f"{PIPE_TOL})")
+    if problems:
+        raise AssertionError(f"17b: {problems}")
+    return {
+        "steps_completed": [e["step"] for e in log],
+        "losses": [e["loss"] for e in log], "reference": reference,
+        "rel_err": errs, "restarts": tr._restarts, "fit_s": fit_s,
+        "kill_to_next_step_s": after[0]["at"] - tr.kill_at,
+        "respawn_to_constructor_s": new["started_at"] - respawn[0]["at"],
+        "killed_pid": tr.killed["pid"], "new_pid": new["pid"],
+        "new_stage_visible": new["visible"],
+        "new_stage_launches": new["launches"],
+        "launches_per_step": per_step, "steps_on_new_stage": len(after),
+        "stage0_launches": stages[0]["launches"]}
+
+
+def dreamer_chaos_phase(device="cuda", cfg=None, pipe_shape=None,
+                        stage_resources=None, reference=None,
+                        init_kwargs=None) -> dict:
+    """Phase 17: 17a's parity here, then 17a's training and 17b under a
+    fresh ``ray_tpu_torch.init(num_cpus=4)``.  Every process it starts is
+    stopped before it returns."""
+    import ray_tpu_torch as rt
+
+    cfg = cfg or GPT2Config.small(dtype="bfloat16", attention="flash")
+    batch, seq, micro, steps = pipe_shape or (PIPE_BATCH, cfg.max_seq,
+                                              PIPE_MICRO, PIPE_STEPS)
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    rep = {"dreamer_parity": dreamer_parity(device)}
+    rt.init(num_cpus=4, **(init_kwargs or {}))
+    try:
+        rep["dreamer"] = dreamer_train(rt, device)
+        rep["dreamer_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep["pipeline_chaos"] = pipeline_chaos(
+            rt, cfg, batch, seq, micro, steps,
+            stage_resources or {"CPU": 1.0, "GPU": 0.5}, device, reference)
+        wait_card_free(rt)
+        rep["pipeline_chaos_s"] = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    return rep
+
+
+def report_dreamer_chaos_phase(card: str, rep: dict) -> None:
+    """Phase 17's readings: one line of numbers, then the report as JSON."""
+    d, pc = rep["dreamer"], rep["pipeline_chaos"]
+    prof = d.get("profiled_update", {})
+    f32_params = max(max(v["wm_params"], v["ac_params"])
+                     for k, v in rep["dreamer_parity"].items()
+                     if k.endswith("float32"))
+    gated = max(v for k, e in rep["dreamer_parity"].items()
+                for n, v in e.items()
+                if k.endswith("float64") or not n.endswith("_params"))
+    print(f"dreamer/chaos on {card}: 17a card against CPU within "
+          f"{gated:.2e} (f32 parameters after Adam {f32_params:.2e}); "
+          f"world-model loss {d['wm_losses'][0]:.3f} -> "
+          f"{d['wm_losses'][-1]:.3f}; an update {d['update_ms_median']:.3f} "
+          f"ms (median of {DREAMER_TIMED}), "
+          f"{prof.get('device_ms', float('nan')):.3f} ms device in "
+          f"{prof.get('kernels')} kernels (busy share "
+          f"{prof.get('busy_share', float('nan')):.3f}), "
+          f"{prof.get('d2h_copies')} device-to-host copy; s a train() "
+          f"{[round(s, 2) for s in d['train_s']]}; 17b stage 1 (pid "
+          f"{pc['killed_pid']}) killed after {CHAOS_KILL_AFTER} steps, "
+          f"{pc['restarts']} restart, next step "
+          f"{pc['kill_to_next_step_s']:.2f} s after the kill, respawn to "
+          f"the new stage's constructor {pc['respawn_to_constructor_s']:.2f}"
+          f" s; steps {pc['steps_completed']} within "
+          f"{max(pc['rel_err']):.2e} of the sequential run; new stage "
+          f"(pid {pc['new_pid']}, CUDA_VISIBLE_DEVICES="
+          f"{pc['new_stage_visible']!r}) launched {pc['new_stage_launches']}"
+          f" over {pc['steps_on_new_stage']} steps ({pc['launches_per_step']}"
+          f" a step)", flush=True)
+    print("dreamer_chaos " + json.dumps(rep, default=str), flush=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5999,7 +6450,7 @@ def main() -> int:
     # Phase 11: the collective layer and Train, the training step in a
     # TorchTrainer worker that leases the card.
     tp = train_phase(GPT2Config.small(dtype="bfloat16", attention="flash",
-                                      remat=True), 32, 1024, 3, 10)
+                                      remat=True), 32, 1024, 3, 5)
     report_train_phase(card, tp, train_rep)
     worker_launches = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
                                tp["trainer"]["launches"]))
@@ -6054,6 +6505,14 @@ def main() -> int:
     rl = rl_phase()
     report_rl_phase(card, rl)
     lap(16)
+    # Phase 17: DreamerV3's learner on the card, then 13a's pipelined run
+    # with a stage killed and recovered (the flash kernels launched in the
+    # respawned stage).
+    dc = dreamer_chaos_phase(
+        reference=pa["pipeline"]["sequential"]["losses"])
+    report_dreamer_chaos_phase(card, dc)
+    chaos_launches = dc["pipeline_chaos"]["new_stage_launches"]
+    lap(17)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
@@ -6116,6 +6575,8 @@ def main() -> int:
          "launches_job": job_launches["flash_fwd"],
          # Phase 13: in 13a's two stage actors, and 13b's autoscaled task.
          "launches_pipeline": [s["flash_fwd"] for s in pipe_launches],
+         # Phase 17: in 17b's respawned stage 1.
+         "launches_respawned_stage": chaos_launches["flash_fwd"],
          "launches_autoscaled_task": task_launches["flash_fwd"],
          # Phase 14: one kernel-route call of 14a's ring and of its
          # Ulysses, and 14b's sharded steps.
@@ -6153,6 +6614,7 @@ def main() -> int:
             "launches_dp_ranks": [int(r[i]) for r in dp_ranks],
             "launches_tune": {lr: t[name] for lr, t in tune_launches.items()},
             "launches_pipeline": [s[name] for s in pipe_launches],
+            "launches_respawned_stage": chaos_launches[name],
             "launches_ring": sp_launches["ring"][name],
             "launches_ulysses": sp_launches["ulysses"][name],
             "launches_sharded_train": sharded_launches[name],

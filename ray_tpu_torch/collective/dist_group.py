@@ -150,13 +150,13 @@ class _DistComm:
                     pg.send([t], dst, 0)
                 if src is not None:
                     pg.recv([buf], src, 0)
-                pg._end_coalescing(t.device).wait()
+                self.g._wait(pg._end_coalescing(t.device))
                 return buf
             sent = pg.send([t], dst, 0) if dst is not None else None
             if src is not None:
-                pg.recv([buf], src, 0).wait()
+                self.g._wait(pg.recv([buf], src, 0))
             if sent is not None:
-                sent.wait()
+                self.g._wait(sent)
             return buf
 
         return [self.g._run("ppermute", x, exchange)]
@@ -173,8 +173,8 @@ class _DistComm:
         if self.g.backend == Backend.NCCL:
             pg = self.g._axis_group(axis)
             out = x.new_empty((rows, *x.shape[1:]))
-            pg.reduce_scatter([out], [list(x.contiguous().split(rows))]
-                              ).wait()
+            self.g._wait(pg.reduce_scatter(
+                [out], [list(x.contiguous().split(rows))]))
             return [out]
         # gloo: a full allreduce (CUDA tensors in place), then this
         # position's part.
@@ -190,7 +190,7 @@ class _DistComm:
         def gather(t):
             t = t.contiguous()
             outs = [torch.empty_like(t) for _ in range(n)]
-            pg.allgather([outs], [t]).wait()
+            self.g._wait(pg.allgather([outs], [t]))
             return torch.cat(outs) if tiled else torch.stack(outs)
 
         return [self.g._run("allgather", xs[0], gather)]
@@ -297,6 +297,16 @@ class DistGroup:
             return dist.ProcessGroupNCCL(store, rank, size, self._timeout)
         return dist.ProcessGroupGloo(store, rank, size, self._timeout)
 
+    def _wait(self, work):
+        """Waits for one c10d op.  gloo's wait blocks this thread, so it
+        takes the group's op timeout.  NCCL's blocks no thread: it orders
+        the current stream after the op, and the group's watchdog holds
+        the op to the same timeout (given one here, it would poll the host
+        until the op is done)."""
+        if self.backend == Backend.NCCL:
+            return work.wait()
+        return work.wait(self._timeout)
+
     def _axis_group(self, axis: str):
         """The process group along ``axis`` that holds this rank, made on
         first use (every member reaches the same two-level op together)."""
@@ -344,7 +354,7 @@ class DistGroup:
         out = tensor.clone(memory_format=torch.contiguous_format)
         opts = dist.AllreduceOptions()
         opts.reduceOp = red
-        pg.allreduce([out], opts).wait()
+        self._wait(pg.allreduce([out], opts))
         if op == ReduceOp.MEAN:
             out = out / pg.size()
         return out
@@ -440,7 +450,7 @@ class DistGroup:
         opts = dist.BroadcastOptions()
         opts.rootRank = src_rank
         opts.rootTensor = 0
-        self._groups["world"].broadcast([out], opts).wait()
+        self._wait(self._groups["world"].broadcast([out], opts))
         return out
 
     def alltoall(self, tensor):
@@ -458,8 +468,8 @@ class DistGroup:
         def a2a(t):
             t = t.contiguous()
             out = torch.empty_like(t)
-            self._groups["world"].alltoall_base(
-                out, t, [], [], dist.AllToAllOptions()).wait()
+            self._wait(self._groups["world"].alltoall_base(
+                out, t, [], [], dist.AllToAllOptions()))
             return out
 
         return self._run("alltoall", x, a2a)

@@ -119,13 +119,16 @@ def rl_params_from_jax(tree, device: DeviceLike = None):
     """An RLlib params dict of the JAX package (numpy or JAX leaves), flat
     or nested — PPO's ``w1/b1/wp/bp/wv/bv``, ``init_mlp``'s ``w{i}/b{i}``,
     ``SACModule``'s ``pi/q1/q2``, a ``MultiRLModule``'s per-module trees,
-    IQL's ``v`` — → the same dict of f32 tensors on ``device`` (the card
-    unless it says "cpu"); a bare array (SAC's log-alpha) → a tensor."""
+    IQL's ``v``, DreamerV3's dicts of lists of ``{"w", "b"}`` layers — →
+    the same tree of f32 tensors on ``device`` (the card unless it says
+    "cpu"), lists as lists; a bare array (SAC's log-alpha) → a tensor."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
         return torch.from_numpy(
             np.array(node, dtype=np.float32, order="C")).to(dev)
 

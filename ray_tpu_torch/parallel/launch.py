@@ -20,12 +20,19 @@ from __future__ import annotations
 
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from typing import Any, List, Optional, Sequence
+
+# How long the other ranks may take to exit on their own once one fails.
+_GRACE_S = 5.0
+# A collective's errors when a peer process exits (gloo, NCCL).
+_PEER_CLOSED = re.compile(r"[Cc]onnection (closed|reset) by peer|Broken pipe"
+                          r"|ncclRemoteError|remote process exited")
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -81,33 +88,45 @@ def run_world(fn: str, n: int, *, args: Sequence[Any] = (),
                 env=env, stdout=log, stderr=subprocess.STDOUT))
             log.close()
         deadline = time.monotonic() + timeout
-        failed: Optional[int] = None
-        while failed is None and any(p.poll() is None for p in procs):
-            if time.monotonic() > deadline:
+        # Ranks seen to exit with an error, in the order seen.  The first
+        # failure starts a grace for the rest: a peer's collective raises
+        # as soon as the failing rank closes its connections, and may
+        # exit before it, so each rank gets a moment to exit on its own
+        # and leave its own error in its log.
+        exited: List[int] = []
+        grace_end: Optional[float] = None
+        while any(p.poll() is None for p in procs):
+            now = time.monotonic()
+            if now > deadline or (grace_end is not None and now > grace_end):
                 break
-            failed = next((r for r, p in enumerate(procs)
-                           if p.poll() not in (None, 0)), None)
+            exited += [r for r, p in enumerate(procs)
+                       if p.poll() not in (None, 0) and r not in exited]
+            if exited and grace_end is None:
+                grace_end = min(deadline, now + _GRACE_S)
             time.sleep(0.05)
-        timed_out = failed is None and any(p.poll() is None for p in procs)
+        exited += [r for r, p in enumerate(procs)
+                   if p.poll() not in (None, 0) and r not in exited]
+        timed_out = not exited and any(p.poll() is None for p in procs)
         for p in procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
-        if failed is None and not timed_out:
-            failed = next((r for r, p in enumerate(procs) if p.returncode),
-                          None)
         if timed_out:
             raise TimeoutError(f"{fn}: world of {n} passed its {timeout:.0f}"
                                f" s deadline\n"
                                f"{_tail(os.path.join(work, 'rank0.log'))}")
-        if failed is not None:
-            # Every rank that exited with an error (-9 is this call's
-            # kill): the first to raise takes its peers down with it, in
-            # no set order.
+        if exited:
+            logs = [os.path.join(work, f"rank{r}.log") for r in range(n)]
+            # The rank whose log shows the first error of its own (one not
+            # raised by a collective at a peer's exit), a rank killed here
+            # included; else the lowest rank that failed.
+            killed = [r for r, p in enumerate(procs)
+                      if p.returncode and r not in exited]
+            failed = next((r for r in exited + killed
+                           if _own_error(logs[r])), min(exited))
             tails = "\n".join(
-                f"--- rank {r} (exit {p.returncode}):\n"
-                f"{_tail(os.path.join(work, f'rank{r}.log'))}"
-                for r, p in enumerate(procs) if p.returncode not in (0, -9))
+                f"--- rank {r} (exit {p.returncode}):\n{_tail(logs[r])}"
+                for r, p in enumerate(procs) if p.returncode)
             raise RuntimeError(f"{fn}: rank {failed} exited "
                                f"{procs[failed].returncode}\n{tails}")
         out = []
@@ -117,6 +136,14 @@ def run_world(fn: str, n: int, *, args: Sequence[Any] = (),
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def _own_error(path: str) -> bool:
+    """Whether the rank's log ends in a raised exception of its own, and
+    not in a collective's error at a peer's exit."""
+    text = _tail(path, 20000)
+    at = text.rfind("Traceback (most recent call last)")
+    return at >= 0 and not _PEER_CLOSED.search(text[at:])
 
 
 def _tail(path: str, size: int = 3000) -> str:

@@ -5,9 +5,8 @@ Reference: ray ``rllib/`` — Algorithm (a Tune Trainable) coordinating env
 runner actors for sampling and PyTorch learners for SGD on the card
 (``device="cpu"`` on a config runs them on the CPU); algorithms: PPO, DQN
 (double/PER), IMPALA/APPO (V-trace), SAC, BC/MARWIL, CQL/IQL (offline),
-independent multi-agent learning, and the Podracer trainers (Anakin,
-Sebulba).  DreamerV3 (its world model, GRU and categorical latents) is not
-ported yet: it comes with the last slice of the port.
+independent multi-agent learning, the Podracer trainers (Anakin,
+Sebulba), and DreamerV3 (a world model, acting in imagination).
 """
 
 from .actor_manager import FaultTolerantActorManager  # noqa: F401
@@ -30,6 +29,7 @@ from .algorithm import (  # noqa: F401
 )
 from .bc import BC, BCConfig, MARWIL, MARWILConfig  # noqa: F401
 from .dqn import DQN, DQNConfig  # noqa: F401
+from .dreamerv3 import DreamerV3, DreamerV3Config  # noqa: F401
 from .env import CartPole, CartPoleTorch, Pendulum, PendulumTorch  # noqa: F401
 from .impala import (  # noqa: F401
     APPO,

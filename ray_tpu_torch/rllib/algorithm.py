@@ -156,14 +156,24 @@ def mlp_forward_np(params, x, n_layers: int):
 
 
 # --------------------------------------------------- learner building blocks
-# Parameter trees are nested dicts of tensors (or a bare tensor, such as
-# SAC's log-alpha): the learners' stand-in for JAX pytrees.
+# Parameter trees are nested dicts and lists of tensors (or a bare tensor,
+# such as SAC's log-alpha): the learners' stand-in for JAX pytrees.
+class _Index(int):
+    """A list position in a tree path (a dict key may be an int too)."""
+
+
 def tree_paths(tree, prefix=()):
-    """``[(path, leaf)]`` in sorted-key order, as ``jax.tree.leaves``."""
+    """``[(path, leaf)]`` in sorted-key and list order, as
+    ``jax.tree.leaves``."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += tree_paths(tree[k], prefix + (k,))
+        return out
+    if isinstance(tree, list):
+        out = []
+        for i, node in enumerate(tree):
+            out += tree_paths(node, prefix + (_Index(i),))
         return out
     return [(prefix, tree)]
 
@@ -171,13 +181,23 @@ def tree_paths(tree, prefix=()):
 def tree_unflatten(paths, leaves):
     if len(paths) == 1 and paths[0] == ():
         return leaves[0]
-    out: Dict[str, Any] = {}
+    out: Dict[Any, Any] = {}
     for path, leaf in zip(paths, leaves):
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
-    return out
+    return _lists(out)
+
+
+def _lists(node):
+    """The nodes keyed by list positions, back into lists."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(isinstance(k, _Index) for k in node):
+        return [node[i] for i in range(len(node))]
+    return node
 
 
 def tree_map(fn, *trees):
@@ -269,10 +289,12 @@ class Adam:
             torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2),
             torch._foreach_mul(nu, b2))
         count = state["count"] + 1
-        # optax reckons the bias corrections in f32.
-        one, n = np.float32(1), np.float32(count)
-        mu_hat = torch._foreach_div(mu, float(one - np.float32(b1) ** n))
-        nu_hat = torch._foreach_div(nu, float(one - np.float32(b2) ** n))
+        # optax reckons the bias corrections in the default float: f32,
+        # or f64 where JAX runs in 64 bits (the leaves' dtype here).
+        ft = np.float64 if p and p[0].dtype == torch.float64 else np.float32
+        one, n = ft(1), ft(count)
+        mu_hat = torch._foreach_div(mu, float(one - ft(b1) ** n))
+        nu_hat = torch._foreach_div(nu, float(one - ft(b2) ** n))
         upd = torch._foreach_div(
             mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps))
         new = torch._foreach_add(p, torch._foreach_mul(upd, -self.lr))

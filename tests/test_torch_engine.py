@@ -154,8 +154,8 @@ def test_entry_points_need_a_gpu_unless_told_cpu(monkeypatch):
 
 def test_port_imports_no_jax_and_nothing_of_ray_tpu():
     """Every module of the port (the Serve layer and the OpenAI apps, the
-    DAGs, Tune, jobs, the CLI, the dashboard and RLlib's algorithm base
-    among them), and chip_smoke.py, import without JAX or any module of
+    DAGs, Tune, jobs, the CLI, the dashboard, RLlib's algorithm base,
+    DreamerV3 and the devtools among them), and chip_smoke.py, import without JAX or any module of
     the JAX package (checked in a fresh interpreter)."""
     code = """
 import importlib, pkgutil, sys
@@ -173,7 +173,9 @@ serving = {{"ray_tpu_torch.serve", "ray_tpu_torch.serve.api",
            "ray_tpu_torch.llm.disagg", "ray_tpu_torch.dag.worker_loop",
            "ray_tpu_torch.tune.tuner", "ray_tpu_torch.job.sdk",
            "ray_tpu_torch.scripts.cli", "ray_tpu_torch.dashboard",
-           "ray_tpu_torch.rllib.algorithm"}}
+           "ray_tpu_torch.rllib.algorithm", "ray_tpu_torch.rllib.dreamerv3",
+           "ray_tpu_torch.devtools.lint", "ray_tpu_torch.devtools.chaos",
+           "ray_tpu_torch.devtools.sim_agent", "ray_tpu_torch.llm.tokenizer"}}
 assert serving <= set(names), sorted(serving - set(names))
 import chip_smoke
 bad = sorted(m for m in sys.modules

@@ -3,8 +3,9 @@
 layer, its collective layer and Train, its DAGs, Tune and jobs, its
 pipeline-parallel trainer, its autoscaler, its parallel layer (ring and
 Ulysses attention, the sharded train step), its vision and MoE models,
-RLlib (the learners, Anakin and Sebulba, DreamerV3) and its chaos
-injectors on one NVIDIA GPU and check them.
+RLlib (the learners, Anakin and Sebulba, DreamerV3), its chaos
+injectors and north-star #4 (GPT-2-medium trained from dataset shards
+through the sharded path) on one NVIDIA GPU and check them.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -23,8 +24,10 @@ Phases (none is caught: any failure exits non-zero):
      fused qkv), the flash backward kernels (dQ, dK/dV) at GPT-2 small's
      training shape (strided and contiguous), TinyLlama's width, S=1000
      and non-causal S=512, the forward and backward at D=128 (S=1000
-     causal, S=512 not), and both at ViT-B/16's attention (B=32 x S=197,
-     no multiple of the 64-row tile, H=12, not causal, timed in bf16);
+     causal, S=512 not), both at ViT-B/16's attention (B=32 x S=197,
+     no multiple of the 64-row tile, H=12, not causal, timed in bf16) and
+     both at GPT-2-medium's training shape (B=8 x S=1024 x H=16, causal,
+     timed in bf16);
      bf16 at a tolerance of 2e-2 (relative to the
      largest plain gradient for the backward) and f32 at 1e-4.  Each with
      its time, the plain version's time, one PyTorch library call of the
@@ -40,7 +43,7 @@ Phases (none is caught: any failure exits non-zero):
      compared (f32 at 1e-4, bf16 launch by launch at 2e-2);
   5. training at full width (the training slice's path): GPT-2 small, bf16,
      flash attention, remat, B=32 x S=1024 seeded tokens, AdamW; 3 warm-up
-     and 10 timed steps on one batch, finite and falling loss, launch
+     and 5 timed steps on one batch, finite and falling loss, launch
      counts per step (flash forward 2 x 12, dQ 12, dK/dV 12), tokens/s,
      peak memory and one profiled step, in which each of the three
      attention kernels must show device time;
@@ -51,11 +54,12 @@ Phases (none is caught: any failure exits non-zero):
      replica and batched decode replica (bf16, buckets 1, 2, 4, 8, each
      bucket's decode step captured in a CUDA graph first) behind a local
      router; 16 prompts from 16 client threads 50 ms apart, 64 greedy
-     tokens each, then 4 of them again as prefix-cache hits.  Tokens/s,
+     tokens each, then 2 of them again as prefix-cache hits.  Tokens/s,
      the decode step per bucket, the bucket trace (must reach 8 and
      shrink), a profiled window of 10 full-bucket steps (22 decode kernels
      a replayed step, by name), graph replay against the eager step
-     (logits at 2e-2, both timed) and how many outputs equal solo runs
+     (logits at 2e-2, both timed) and how many of the first 8 outputs
+     equal solo runs
      (printed, not asserted: bf16 rounds by batch shape).  Then f32 token
      parity with solo ``TorchLLMEngine`` runs for both families at 2
      layers, across buckets 1 -> 8 with a preemption, a cancel and a
@@ -87,17 +91,17 @@ Phases (none is caught: any failure exits non-zero):
      then phase 7's burst (TTFT, prefill, KV handoff per request, flash
      launches in the prefill actor, 22 decode kernels a replayed step);
      then ``build_disagg_openai_app`` over HTTP with every bucket captured
-     first: the burst, 4 repeats that must be router prefix hits, and a
+     first: the burst, 2 repeats that must be router prefix hits, and a
      streamed request whose trace gathers spans from 3 processes.
      Tokens/s in phase 9 are read with no kernel trace;
  10. the Data layer and batch inference at TinyLlama-1.1B's width (bf16,
      phase 9's seeded weights, made by each engine; 64 greedy tokens),
-     under a fresh ``ray_tpu_torch.init(num_cpus=4)``: (a) 64 seeded
+     under a fresh ``ray_tpu_torch.init(num_cpus=4)``: (a) 32 seeded
      prompts written to parquet, read back and run through
      ``build_llm_processor`` as shipped, two data actors leasing half the
-     card each: 64 rows, each with its own prompt and a ``str``, and
+     card each: 32 rows, each with its own prompt and a ``str``, and
      both actors under ``CUDA_VISIBLE_DEVICES="0"`` (wall time, rows/s,
-     the first block's time); (b) 32 of them through a counting subclass
+     the first block's time); (b) 16 of them through a counting subclass
      of the stage in a pool of n=1, then n=2 actors leasing 1/n of the
      card: in every actor, 22 flash launches a prefilled prompt and 22
      decode launches an eager step; tokens/s, block latency, prefill and
@@ -273,6 +277,23 @@ Phases (none is caught: any failure exits non-zero):
      included, within 2e-3 of 13a's sequential run; the seconds from the
      kill to the next completed step and from the respawn request to the
      new stage's constructor.
+ 18. north-star #4 (BASELINE.json configs[3]) at GPT-2-medium's width
+     (24 layers, d_model 1024, 16 heads, vocab 50304, bf16, flash
+     attention, remat), under a fresh ``ray_tpu_torch.init``: one
+     ``TorchTrainer`` worker leasing the card (NCCL, world 1) places the
+     seeded weights by ``shard_pytree`` with ``gpt2_param_axes()`` on the
+     world-of-one ``MeshConfig()`` mesh and steps AdamW on the local
+     shards (``LocalShardOptimizer``), 2 warm-up and 5 timed steps of
+     B=8 x S=1024 Zipf-drawn seeded rows streamed from its
+     ``get_dataset_shard("train")`` through ``iter_batches``: every loss
+     finite and the last below the first, 48/24/24 flash launches a step
+     in the worker under ``CUDA_VISIBLE_DEVICES="0"``; then, the card
+     free, the same steps unsharded here (flash, the same weights and
+     batches in order): every loss within 2e-3.  Step ms (median and
+     min) and tokens/s beside the unsharded steps', the step's FLOP
+     bound at 989 TFLOP/s and its share, peak memory, the worker's start.
+     ``tools/parallel_cards.py c`` runs the same loop over (data=2,
+     fsdp=2) on 4 cards.
 
 Prints the kernels' JSON line on the line before the last, and as the last
 line {"ok": true, "device": {...}}.  Exits non-zero with no result when no
@@ -1191,6 +1212,8 @@ DECODE_KERNEL = "decode_attention_kernel"
 FLASH_KERNEL = "flash_fwd"
 # Sent alone through phase 7's in-process router and phase 9's actor route.
 SOLO_PROMPT = make_prompts(1, 100, 1500, SEED + 40)[0]
+SOLO_COMPARED = 8  # phase 7's burst outputs held beside solo runs
+CB_REPEATS = 2  # phases 7 and 9: burst prompts sent again, prefix hits
 
 
 def graph_launches(programs: dict) -> int:
@@ -1482,13 +1505,14 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
             f"{rep['profile']['decode_kernels_per_step']} {DECODE_KERNEL} "
             f"kernels per replayed step in the profile, want {cfg.n_layer}")
     # bf16 at full width: batch shape changes rounding, so outputs are only
-    # counted against solo runs, not asserted.
+    # counted against solo runs, not asserted; the first SOLO_COMPARED of
+    # the burst (each solo run decodes alone, at batch 1).
     solo = TorchLLMEngine(dataclasses.replace(ecfg, max_batch_size=1))
-    want = solo.generate(prompts, sp)
+    want = solo.generate(prompts[:SOLO_COMPARED], sp)
     rep["match_solo"] = sum(w["token_ids"] == o["token_ids"]
                             for w, o in zip(want, outs))
-    print(f"cb outputs equal to solo runs: {rep['match_solo']} of "
-          f"{len(outs)}", flush=True)
+    print(f"cb outputs equal to solo runs: {rep['match_solo']} of the "
+          f"first {len(want)}", flush=True)
     if problems:
         raise AssertionError("cb serve: " + "; ".join(problems))
     del solo, engine, dec, pre, router, params
@@ -1595,7 +1619,7 @@ def cb_parity(model_cfg):
 KV_HANDOFF_SHAPE = (2, 22, 1000, 8, 64)
 PUT_GET_ELEMENTS = 32 << 20  # 64 MiB of bf16
 EXPECT_MODEL = "H100"  # in the detected accelerator_type label
-ROUND_TRIPS = 1000  # no-op tasks and actor calls timed
+ROUND_TRIPS = 500  # no-op tasks and actor calls timed
 
 
 # The remote functions and actor classes below travel to the workers by
@@ -2448,12 +2472,12 @@ def serve_phase(cb_solo_tokens, max_tokens: int, repeats: int) -> dict:
 
 # ----------------------------------------------------------------- phase 10
 # Phase 10's traffic: a file of seeded prompts, 8 a block (one engine's
-# slots); the counted runs take the first 32 of them.  Half the depth
-# this phase first ran at (128 and 64), to keep the script, phase 11
-# included, near half its time limit.
-DATA_PROMPTS = (64, 100, 1500, SEED + 50)
-DATA_BLOCKS = 8
-DATA_COUNTED = 32
+# slots); the counted runs take the first 16 of them.  A quarter of the
+# depth this phase first ran at (128 and 64), to keep the script, phases
+# 11 to 18 included, within its time limit.
+DATA_PROMPTS = (32, 100, 1500, SEED + 50)
+DATA_BLOCKS = 4
+DATA_COUNTED = 16
 DATA_TOKENS = 64
 
 
@@ -3643,7 +3667,7 @@ DAG_CALLS, DAG_WARMUP = 20, 5
 # The f32 check: 2 layers at full width, B=1 x S=128, logits compared.
 DAG_F32_SEQ = 128
 DAG_ALLREDUCE_SIZES = (1 << 20, 64 << 20)
-DAG_ALLREDUCE_CALLS = 5
+DAG_ALLREDUCE_CALLS = 3
 # 12b: two trials of a TorchTrainer each, one worker on half the card.
 TUNE_LRS = (3e-4, 3e-3)
 TUNE_BATCH, TUNE_STEPS = 8, 6
@@ -6203,6 +6227,336 @@ def report_dreamer_chaos_phase(card: str, rep: dict) -> None:
     print("dreamer_chaos " + json.dumps(rep, default=str), flush=True)
 
 
+# ----------------------------------------------------------------- phase 18
+# North-star #4 (BASELINE.json configs[3], "Ray Train GPT-2-medium LM (Ray
+# Data streaming + sharded optimizer)") at GPT-2-medium's width: seeded
+# rows of B=8 x S=1024 (+1) ids streamed from a dataset shard into
+# TorchTrainer workers, the parameters placed by shard_pytree and AdamW
+# stepped on their local shards.  On one card the mesh is a world of one
+# (NCCL refuses two ranks on a card); tools/parallel_cards.py runs the
+# same loop at (data=2, fsdp=2) over 4 cards.
+NS4_SEED = SEED + 210
+NS4_SHAPE = (8, 1024, 2, 5)  # global batch, seq, warm-up and timed steps
+NS4_LR = 1e-4  # 11b's and 14b's; optax's AdamW defaults otherwise
+NS4_BLOCKS = 4  # the dataset's blocks (from_items' parallelism)
+
+
+def ns4_rows(n: int, seq: int, vocab: int, seed: int):
+    """``n`` seeded rows of ``seq + 1`` ids drawn by Zipf's law over the
+    vocabulary (rank r with weight 1/r), as token frequencies in text
+    run: the unigram statistics give a loss that falls within a few
+    steps, which ids drawn uniformly do not (their loss starts at the
+    uniform optimum, ln V, up to the logits' spread)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, vocab + 1)
+    return rng.choice(vocab, (n, seq + 1), p=p / p.sum())
+
+
+def gpt2_train_flops(cfg, batch: int, seq: int) -> dict:
+    """FLOPs of one GPT-2 train step, reckoned from the shapes: 6 a
+    matmul weight a token (forward 2, backward 4; the per-layer qkv, out
+    and MLP projections and the tied unembedding; the embedding lookup
+    costs none), plus causal attention's QK^T and PV (forward 4·D a live
+    pair and head, backward twice that).  Remat's recomputed forward is
+    not counted: the bound is the least work the step needs."""
+    e, layers = cfg.d_model, cfg.n_layer
+    weights = layers * 12 * e * e + cfg.vocab_size * e
+    pairs = seq * (seq + 1) // 2
+    attention = layers * 3 * 4 * batch * cfg.n_head * cfg.head_dim * pairs
+    return {"matmul_weights": weights, "attention_flops": attention,
+            "train_flops": 6 * weights * batch * seq + attention}
+
+
+def _northstar4_loop(config):
+    """Phase 18's ``train_loop_per_worker``: GPT-2 on the leased card
+    (the CPU in a rehearsal), placed by ``shard_pytree`` with
+    ``gpt2_param_axes()`` on ``MeshConfig(**config["mesh"])`` over the
+    trainer's process group, AdamW stepped on the local shards
+    (``LocalShardOptimizer``).  ``gpt2_loss(..., mesh)`` takes the global
+    batch and each rank computes its own block of it, so each step every
+    rank reads ``batch / world`` rows of its dataset shard and an
+    all-gather builds the global batch in rank order.  Each step reports
+    its loss, the global batch's row ids, its ms (data included; the card
+    synchronized at both ends) and its flash launches; then one summary
+    of the worker (every rank's, gathered to rank 0)."""
+    import os
+    import time
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import ray_tpu_torch.train as train
+    from ray_tpu_torch.models import (
+        GPT2Config, gpt2_init, gpt2_loss, gpt2_param_axes,
+    )
+    from ray_tpu_torch.ops.attention import (
+        flash_attention, flash_dkv, flash_dq,
+    )
+    from ray_tpu_torch.parallel import MeshConfig, build_mesh, shard_pytree
+    from ray_tpu_torch.parallel.spmd import LocalShardOptimizer
+
+    started = time.time()
+    ctx = train.get_context()
+    world = ctx.world_size
+    cuda = config["device"] != "cpu"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    mesh = build_mesh(MeshConfig(**config["mesh"]))
+    cfg = GPT2Config(**config["cfg"])
+    params = shard_pytree(
+        gpt2_init(torch.Generator(dev).manual_seed(config["seed"]), cfg,
+                  device=dev),
+        gpt2_param_axes(), mesh).requires_grad_(True)
+    opt = LocalShardOptimizer(params.parameters(), torch.optim.AdamW,
+                              **config["adamw"])
+    batches = train.get_dataset_shard("train").iter_batches(
+        batch_size=config["batch"] // world, batch_format="numpy",
+        drop_last=True)
+
+    def counts():
+        return [flash_attention.launches, flash_dq.launches,
+                flash_dkv.launches]
+
+    def gather(x):
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    first_step = time.time()
+    for step in range(config["steps"]):
+        sync()
+        before, t0 = counts(), time.perf_counter()
+        batch = next(batches)
+        tokens = gather(torch.from_numpy(np.asarray(batch["tokens"])).to(dev))
+        ids = gather(torch.from_numpy(np.asarray(batch["id"])).to(dev))
+        data_ms = (time.perf_counter() - t0) * 1e3
+        loss = gpt2_loss(params, tokens, cfg, mesh)
+        loss.backward()
+        opt.step()
+        opt.zero_grad()
+        loss = float(loss.detach())
+        sync()
+        train.report({"step": step, "loss": loss, "ids": ids.tolist(),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "data_ms": data_ms,
+                      "launches": [a - b for a, b in zip(counts(), before)]})
+    local = sum(p.to_local().numel() for p in params.parameters())
+    mine = {"visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "launches": counts(),
+            "local_params": local,
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if cuda else None)}
+    ranks = [None] * world
+    dist.all_gather_object(ranks, mine)
+    train.report({"started": started, "first_step": first_step,
+                  "backend": ctx.backend, "world": world,
+                  "params": sum(p.numel() for p in params.parameters()),
+                  "wte_placements": [str(p) for p in
+                                     params["wte"].placements],
+                  "ranks": ranks})
+
+
+def northstar4_fit(rt, rd, cfg, shape=NS4_SHAPE, device="cuda",
+                   workers: int = 1, mesh_cfg=None) -> dict:
+    """Phase 18's fit: ``_northstar4_loop`` in a ``TorchTrainer`` of
+    ``workers`` workers, each leasing a whole card (NCCL; gloo and no
+    lease in a rehearsal on the CPU), over a dataset of ``B x steps``
+    seeded rows (``ns4_rows``) with their row ids, ``NS4_BLOCKS`` blocks
+    split into one shard a worker.  Gates: the fit ends without error,
+    every step's loss finite and the last below the first, each epoch's
+    global batches cover the dataset's rows once with each rank's rows
+    from its own shard, ``n_layer x (forward + recompute)`` flash-forward
+    and ``n_layer`` dQ and dK/dV launches a step in every rank, every
+    rank on its own leased card.  Returns the readings, the rows and the
+    global batches' row ids (for ``northstar4_reference``)."""
+    import ray_tpu_torch.train as rtrain
+    from ray_tpu_torch.parallel import MeshConfig
+
+    batch, seq, warmup, steps = shape
+    mesh_cfg = mesh_cfg or MeshConfig()
+    cuda = device != "cpu"
+    rows = ns4_rows(batch * (warmup + steps), seq, cfg.vocab_size,
+                    NS4_SEED + 1)
+    ds = rd.from_items([{"id": i, "tokens": r} for i, r in enumerate(rows)],
+                       parallelism=NS4_BLOCKS)
+    config = {"cfg": dataclasses.asdict(cfg), "seed": NS4_SEED,
+              "batch": batch, "steps": warmup + steps, "device": device,
+              "mesh": dataclasses.asdict(mesh_cfg),
+              "adamw": dict(lr=NS4_LR, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)}
+    t0 = time.time()
+    result = rtrain.TorchTrainer(
+        _northstar4_loop, train_loop_config=config,
+        scaling_config=rtrain.ScalingConfig(
+            num_workers=workers, use_gpu=cuda,
+            gpus_per_worker=1.0 if cuda else 0.0),
+        run_config=rtrain.RunConfig(name="phase18", storage_path=tempfile
+                                    .mkdtemp(prefix="chip_smoke_ns4_")),
+        datasets={"train": ds},
+        backend=rtrain.TorchBackend(None if cuda else "gloo"),
+    ).fit()
+    fit_s = time.time() - t0
+    if result.error is not None:
+        raise AssertionError(f"18 fit failed: {result.error!r}")
+    per_step = [m for m in result.metrics_history if "loss" in m]
+    summary = result.metrics
+    losses = [m["loss"] for m in per_step]
+    order = [m["ids"] for m in per_step]
+    backend = "nccl" if cuda else "gloo"
+    want = [cfg.n_layer * (2 if cfg.remat else 1), cfg.n_layer, cfg.n_layer]
+    problems = []
+    if len(per_step) != warmup + steps:
+        problems.append(f"{len(per_step)} steps reported")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        problems.append(f"losses {losses}")
+    if sorted(i for ids in order for i in ids) != list(range(len(rows))):
+        problems.append(f"the global batches' rows {order}")
+    per = batch // workers
+    owned = [{i for ids in order for i in ids[r * per:(r + 1) * per]}
+             for r in range(workers)]
+    if sum(len(o) for o in owned) != len(rows):
+        problems.append(f"ranks read overlapping rows: {owned}")
+    if cuda and any(m["launches"] != want for m in per_step):
+        problems.append(f"launches a step {[m['launches'] for m in per_step]}"
+                        f", want {want}")
+    ranks = summary["ranks"]
+    if cuda:
+        if sorted(r["visible"] for r in ranks) != [str(i) for i in
+                                                   range(workers)]:
+            problems.append(f"leases {[r['visible'] for r in ranks]}")
+        if any(r["launches"] != [w * (warmup + steps) for w in want]
+               for r in ranks):
+            problems.append(
+                f"launches by rank {[r['launches'] for r in ranks]}")
+    if summary["backend"] != backend or summary.get(
+            "torch_backend") != backend or summary["world"] != workers:
+        problems.append(f"worker {summary}")
+    if problems:
+        raise AssertionError(f"18: {problems}")
+    timed = [m["ms"] for m in per_step[warmup:]]
+    step_ms = float(np.median(timed))
+    fl = gpt2_train_flops(cfg, batch, seq)
+    bound_ms = fl["train_flops"] / BF16_FLOPS * 1e3
+    return {"batch": batch, "seq": seq, "n_layer": cfg.n_layer,
+            "d_model": cfg.d_model, "dtype": cfg.dtype,
+            "warmup_steps": warmup, "timed_steps": steps,
+            "workers": workers, "mesh": list(mesh_cfg.shape),
+            "losses": losses, "step_ms_each": [m["ms"] for m in per_step],
+            "data_ms_each": [m["data_ms"] for m in per_step],
+            "step_ms": step_ms, "step_ms_min": min(timed),
+            "tokens_per_s": batch * seq / step_ms * 1e3,
+            "params": summary["params"],
+            "local_params_by_rank": [r["local_params"] for r in ranks],
+            "wte_placements": summary["wte_placements"], **fl,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "bound_share": bound_ms / step_ms,
+            "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in ranks],
+            "visible_by_rank": [r["visible"] for r in ranks],
+            "launches_per_step": want,
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "worker_start_s": summary["started"] - t0,
+            "first_step_s": summary["first_step"] - t0,
+            "fit_s": fit_s, "backend": summary["torch_backend"],
+            "rows": rows, "order": order}
+
+
+def northstar4_reference(cfg, rows, order, device="cuda"):
+    """The same steps unsharded (no mesh, plain parameters) with
+    ``attention="flash"``, in this process: the fit's seeded weights, its
+    AdamW, its global batches in order.  Each step's loss, and each
+    step's ms (the card synchronized at both ends, the batch's copy to
+    the card included), beside the worker's."""
+    from ray_tpu_torch.models import gpt2_init, gpt2_loss
+
+    dev = _here(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cfg = dataclasses.replace(cfg, attention="flash")
+    params = gpt2_init(torch.Generator(dev).manual_seed(NS4_SEED), cfg,
+                       device=dev).requires_grad_(True)
+    opt = torch.optim.AdamW(params.parameters(), lr=NS4_LR,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    losses, ms = [], []
+    for ids in order:
+        sync()
+        t0 = time.perf_counter()
+        loss = gpt2_loss(params, torch.from_numpy(rows[ids]).to(dev), cfg)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(float(loss.detach()))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del params, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return losses, ms
+
+
+def northstar4_phase(device="cuda", cfg=None, shape=NS4_SHAPE,
+                     workers: int = 1, mesh_cfg=None,
+                     loss_tol: float = SHARDED_TOL) -> dict:
+    """Phase 18 under a fresh ``ray_tpu_torch.init``: the fit, then, once
+    the cluster is down and the card free, the reference steps here;
+    every step's loss within ``loss_tol`` of the reference's.  Every
+    process it starts is stopped before it returns."""
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    cfg = cfg or GPT2Config.medium(dtype="bfloat16", attention="flash",
+                                   remat=True)
+    # Every worker holds a CPU slot; the dataset's read tasks need their own.
+    rt.init(num_cpus=workers + 4)
+    try:
+        if device != "cpu" and rt.cluster_resources().get("GPU") != float(
+                workers):
+            raise AssertionError(f"detected {rt.cluster_resources()}")
+        rep = northstar4_fit(rt, rd, cfg, shape, device, workers, mesh_cfg)
+    finally:
+        rt.shutdown()
+    rows, order = rep.pop("rows"), rep.pop("order")
+    ref, ref_ms = northstar4_reference(cfg, rows, order, device)
+    gaps = [abs(a - b) for a, b in zip(rep["losses"], ref)]
+    if max(gaps) > loss_tol:
+        raise AssertionError(f"18: losses {rep['losses']} against the "
+                             f"unsharded steps' {ref}: gap {max(gaps)} > "
+                             f"{loss_tol}")
+    timed = ref_ms[shape[2]:]
+    rep.update(reference_losses=ref, loss_gaps=gaps, loss_tol=loss_tol,
+               order=order, reference_step_ms_each=ref_ms,
+               reference_step_ms=float(np.median(timed)),
+               reference_step_ms_min=min(timed))
+    return rep
+
+
+def report_northstar4_phase(card: str, rep: dict) -> None:
+    """Phase 18's readings: one line of numbers, then the report as JSON."""
+    print(f"northstar4 on {card}: GPT-2 ({rep['n_layer']} layers, "
+          f"d_model {rep['d_model']}, {rep['params']} parameters, "
+          f"{rep['dtype']}) in {rep['workers']} TorchTrainer worker(s) on "
+          f"mesh {rep['mesh']}, B={rep['batch']} x S={rep['seq']} from "
+          f"dataset shards: a step {rep['step_ms']:.2f} ms median, "
+          f"{rep['step_ms_min']:.2f} min of {rep['timed_steps']}, "
+          f"{rep['tokens_per_s']:.0f} tokens/s (the same steps unsharded "
+          f"in this process: {rep['reference_step_ms']:.2f} ms median, "
+          f"{rep['reference_step_ms_min']:.2f} min); bound "
+          f"{rep['bound_ms']:.2f} ms ({rep['train_flops']:.4g} FLOPs at "
+          f"989 TFLOP/s), share {rep['bound_share']:.3f}; peak "
+          f"{rep['peak_mem_gb_by_rank']} GB; worker start "
+          f"{rep['worker_start_s']:.2f} s (first step at "
+          f"{rep['first_step_s']:.2f} s, fit {rep['fit_s']:.2f} s); losses "
+          f"{rep['losses'][0]:.4f} -> {rep['losses'][-1]:.4f}, largest gap "
+          f"to the unsharded steps {max(rep['loss_gaps']):.2e} (tolerance "
+          f"{rep['loss_tol']}); launches a step {rep['launches_per_step']}, "
+          f"CUDA_VISIBLE_DEVICES {rep['visible_by_rank']}", flush=True)
+    print("northstar4 " + json.dumps(rep), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6307,11 +6661,17 @@ def main() -> int:
     bwd_vit = check_flash_bwd(gen, 32, 12, 197, False, timed=True)
     bwd_runs += [bwd_vit,
                  check_flash_bwd(gen, 32, 12, 197, False, torch.float32)]
+    # GPT-2-medium's training shape (phase 18): B=8 x S=1024 x H=16 x D=64,
+    # causal, forward and backward.
+    flash_medium = check_flash(gen, 1024, True, h=16, b=8, timed=True)
+    bwd_medium = check_flash_bwd(gen, 8, 16, 1024, True, timed=True)
+    bwd_runs.append(bwd_medium)
     print("phase2 " + json.dumps({"decode": dec, "decode_gpt2": dec_gpt2,
                                   "decode_buckets": dec_buckets,
                                   "flash": flash_runs,
                                   "flash_train_shape": flash_train,
                                   "flash_vit_shape": flash_vit,
+                                  "flash_medium_shape": flash_medium,
                                   "flash_d128": flash_d128,
                                   "flash_bwd": bwd_runs}), flush=True)
 
@@ -6357,7 +6717,7 @@ def main() -> int:
     lap(4)
     # Phase 5: training at full width (this slice's path).
     train_rep = train(GPT2Config.small(dtype="bfloat16", attention="flash",
-                                       remat=True), 32, 1024, 3, 10)
+                                       remat=True), 32, 1024, 3, 5)
     print("train gpt2_small " + json.dumps(train_rep), flush=True)
     train_launches = train_rep["launches"]
 
@@ -6379,7 +6739,8 @@ def main() -> int:
 
     lap(6)
     # Phase 7: continuous batching at full width, then f32 token parity.
-    cb = cb_serve(make_prompts(16, 100, 1500, SEED + 12), 64, 0.05, 4)
+    cb = cb_serve(make_prompts(16, 100, 1500, SEED + 12), 64, 0.05,
+                  CB_REPEATS)
     prof = cb["profile"]
     print(f"cb tinyllama_1b on {card}: {cb['tokens_per_s']:.1f} tokens/s "
           f"(under the kernel trace); "
@@ -6403,7 +6764,8 @@ def main() -> int:
                            make_prompts(4, 50, 400, SEED + 30), 32)
     kv = rt_rep["kv_handoff"]
     print(f"runtime on {card}: task round trip "
-          f"{rt_rep['task_round_trip_ms']:.3f} ms (mean of 1000), actor call "
+          f"{rt_rep['task_round_trip_ms']:.3f} ms (mean of {ROUND_TRIPS}), "
+          f"actor call "
           f"{rt_rep['actor_call_ms']:.3f} ms, put/get of 64 MiB "
           f"{rt_rep['put_get']['put_gb_per_s']:.2f}/"
           f"{rt_rep['put_get']['get_gb_per_s']:.2f} GB/s, device_fetch of "
@@ -6416,7 +6778,7 @@ def main() -> int:
     lap(8)
     # Phase 9: the Serve layer and the OpenAI apps, each engine in its own
     # GPU-leased process.
-    sv = serve_phase(cb["solo_tokens"], 64, 4)
+    sv = serve_phase(cb["solo_tokens"], 64, CB_REPEATS)
     oa, ar, da = sv["openai_app"], sv["actor_route"], sv["disagg_app"]
     handoff, steps = ar["kv_handoff"], da["decode_by_bucket"]
     print(f"serve on {card}: 9a openai app "
@@ -6513,6 +6875,14 @@ def main() -> int:
     report_dreamer_chaos_phase(card, dc)
     chaos_launches = dc["pipeline_chaos"]["new_stage_launches"]
     lap(17)
+    # Phase 18: north-star #4, GPT-2-medium trained in a TorchTrainer
+    # worker from a dataset shard through shard_pytree and
+    # LocalShardOptimizer, then the same steps unsharded here.
+    ns4 = northstar4_phase()
+    report_northstar4_phase(card, ns4)
+    ns4_launches = dict(zip(("flash_fwd", "flash_dq", "flash_dkv"),
+                            ns4["launches_by_rank"][0]))
+    lap(18)
 
     flash_main = flash_runs[1]  # S=1000: a prompt length the path serves
     # "design" is the bf16 route each kernel runs on the main path: tensor
@@ -6586,6 +6956,8 @@ def main() -> int:
          # Phase 15: 15a's bf16 replica (12 a batch), 15c's MoE steps.
          "launches_vit_serve": vit_launches,
          "launches_moe_train": moe_launches["flash_fwd"],
+         # Phase 18: in the north-star #4 TorchTrainer worker.
+         "launches_northstar4": ns4_launches["flash_fwd"],
          "max_abs_err": flash_main["max_abs_err"],
          "ms": flash_main["ms"], "plain_ms": flash_main["plain_ms"],
          "bound_ms": flash_main["bound_ms"],
@@ -6596,6 +6968,9 @@ def main() -> int:
              "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err")},
          "vit_shape": {k: flash_vit[k] for k in (
+             "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "max_abs_err")},
+         "medium_train_shape": {k: flash_medium[k] for k in (
              "ms", "event_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "max_abs_err")}},
     ]
@@ -6619,6 +6994,7 @@ def main() -> int:
             "launches_ulysses": sp_launches["ulysses"][name],
             "launches_sharded_train": sharded_launches[name],
             "launches_moe_train": moe_launches[name],
+            "launches_northstar4": ns4_launches[name],
             "max_abs_err": max(errs),
             "ms": rec["ms"], "event_ms": rec["event_ms"],
             "plain_ms": rec["plain_ms"],
@@ -6626,14 +7002,16 @@ def main() -> int:
             "library_ms": bwd_train["library_ms"],
             "library": f"one SDPA backward (dq, dk, dv): "
                        f"{bwd_train['library_backend']}",
-            "vit_shape": {
-                "ms": bwd_vit[key]["ms"], "event_ms": bwd_vit[key]["event_ms"],
-                "plain_ms": bwd_vit[key]["plain_ms"],
-                "bound_ms": bwd_vit[key]["bound_ms"],
-                "bound_by": bwd_vit[key]["bound_by"],
-                "library_ms": bwd_vit["library_ms"],
-                "max_abs_err": max(bwd_vit["max_abs_err"][g] for g in (
-                    ("dq",) if key == "dq" else ("dk", "dv")))}})
+            **{shape: {
+                "ms": run[key]["ms"], "event_ms": run[key]["event_ms"],
+                "plain_ms": run[key]["plain_ms"],
+                "bound_ms": run[key]["bound_ms"],
+                "bound_by": run[key]["bound_by"],
+                "library_ms": run["library_ms"],
+                "max_abs_err": max(run["max_abs_err"][g] for g in (
+                    ("dq",) if key == "dq" else ("dk", "dv")))}
+               for shape, run in (("vit_shape", bwd_vit),
+                                  ("medium_train_shape", bwd_medium))}})
     print(f"seconds by phase {json.dumps(phase_s)}", flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(f"card: {card}", flush=True)

@@ -361,8 +361,12 @@ def container_argv(container_json: str, worker_env: Dict[str, str],
     shm arena; the session dir, /dev/shm, and the framework source are
     mounted so the image needs python but not a baked-in ray_tpu_torch.
     RAY_TPU_TORCH_* identity vars are forwarded explicitly (podman run strips
-    the inherited environment).
+    the inherited environment), and so is the worker's GPU lease,
+    ``CUDA_VISIBLE_DEVICES``, even when it is empty: a lease of no card
+    stays a lease of no card inside the container.
     """
+    from .gpu_detect import VISIBLE_ENV
+
     spec = json.loads(container_json)
     # Re-resolve the runtime on THIS host (the spec carries the driver's
     # preferred name; this agent may have it elsewhere on PATH, or only
@@ -391,6 +395,7 @@ def container_argv(container_json: str, worker_env: Dict[str, str],
     fwd = {
         k: v for k, v in worker_env.items()
         if k.startswith(("RAY_TPU", "PYTHON", "JAX_", "XLA_", "TPU"))
+        or k == VISIBLE_ENV
     }
     fwd["PYTHONPATH"] = (
         pkg_root + os.pathsep + worker_env.get("PYTHONPATH", "")

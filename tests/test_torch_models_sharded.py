@@ -321,3 +321,32 @@ def test_card_tool_runs_on_cpu_ranks():
             assert train["max_grad_rel_err"] <= 2e-2
             assert len(train["grad_rel_err"]) == 16  # 4 top + 12 blocks
             assert all(np.isfinite(train["sharded"]["losses"]))
+
+
+def test_card_tool_trains_northstar4_on_cpu_workers(monkeypatch):
+    """``tools/parallel_cards.py``'s part (c), phase 18's north-star #4
+    loop, on 4 gloo ``TorchTrainer`` workers at a tiny size (f32, flash
+    and remat as on the cards, B=8 x S=64, 1 + 2 steps): each worker reads
+    its own dataset shard, the parameters and AdamW state are sharded over
+    the (data=2, fsdp=2) mesh of the workers (each rank holds a part of
+    them: ``wte`` split over fsdp), and every step's loss is within the
+    tool's ``LOSS_TOL`` of the unsharded steps on the same global batches
+    in this process."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the workers inherit it
+    tools = os.path.join(os.path.dirname(HERE), "tools")
+    monkeypatch.syspath_prepend(tools)
+    import parallel_cards
+
+    cfg = dict(vocab_size=512, max_seq=128, n_layer=2, n_head=4, d_model=64,
+               dtype="float32", attention="flash", remat=True)
+    rep = parallel_cards.northstar4_cards(4, device="cpu", cfg=cfg,
+                                          shape=(8, 64, 1, 2))
+    assert rep["workers"] == 4 and rep["mesh"] == [2, 2, 1, 1, 1, 1]
+    assert rep["backend"] == "gloo"
+    assert rep["loss_tol"] == parallel_cards.LOSS_TOL["float32"]
+    assert len(rep["loss_gaps"]) == 3
+    assert max(rep["loss_gaps"]) <= rep["loss_tol"]
+    assert rep["losses"][-1] < rep["losses"][0]
+    assert rep["wte_placements"] == ["R", "S(1)", "R", "R", "R", "R"]
+    assert all(n < rep["params"] for n in rep["local_params_by_rank"])
+    assert sorted(i for ids in rep["order"] for i in ids) == list(range(24))

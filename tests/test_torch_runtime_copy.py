@@ -104,7 +104,9 @@ DIVERGES = {
                            "default log dir under the temp dir, not /tmp",
                            "d1bc0a920219a264"),
     "core/runtime_env.py": ("default log dir and env cache under the temp "
-                            "dir, not /tmp", "72776c185afcefc9"),
+                            "dir, not /tmp; a container worker keeps its "
+                            "GPU lease (CUDA_VISIBLE_DEVICES forwarded, "
+                            "empty included)", "c57f2284923b9d32"),
     "dag/collective_ops.py": ("the host path reduces torch tensors in "
                               "participant order on the card where one of "
                               "them is; numpy keeps numpy's path",

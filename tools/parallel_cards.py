@@ -15,11 +15,20 @@ as a world of one process a card (``parallel.launch.run_world``):
       there the sharded and unsharded steps differ only in the order of
       their reductions, at f32 rounding, so it is held at phase 14b's
       2e-3.  In bf16 the first step's gradients are held leaf by leaf
-      (``SHARDED_GRAD_TOL``) and the losses at ``LOSS_TOL["bfloat16"]``.
+      (``SHARDED_GRAD_TOL``) and the losses at ``LOSS_TOL["bfloat16"]``;
+  (c) phase 18's north-star #4 loop (``chip_smoke.northstar4_phase``) at
+      GPT-2-medium's width (bf16, flash, remat, B=8 x S=1024, 2 + 5
+      steps) in a ``TorchTrainer`` of one worker a card, each leasing its
+      card (NCCL), each reading its own dataset shard, the parameters and
+      AdamW state sharded over a (data=2, fsdp=n/2) mesh of the workers:
+      every step's loss within ``LOSS_TOL["bfloat16"]`` of the same global
+      batches' steps run unsharded on one card in this process, 48/24/24
+      flash launches a step in every worker.
 
 Prints one JSON line per part and the card's name and power limit.
 
-    python3 tools/parallel_cards.py   # needs 2 or more cards
+    python3 tools/parallel_cards.py        # (a), (b) and (c); 2+ cards
+    python3 tools/parallel_cards.py c      # (c) alone; an even count
 """
 
 import json
@@ -63,26 +72,35 @@ def rank_main(device, attn_shape, reps, cfg_kwargs, seq, batches, steps):
     return out
 
 
-def main() -> int:
-    import torch
-
+def northstar4_cards(n, device="cuda", cfg=None, shape=None):
+    """(c): phase 18 over ``n`` workers, one a card, on a (data=2,
+    fsdp=n/2) mesh, its losses held at ``LOSS_TOL`` of its dtype against
+    the unsharded steps on one card here.  ``cfg`` (GPT2Config keywords)
+    and ``shape`` shrink it for a rehearsal on the CPU (gloo workers
+    leasing no card)."""
     import chip_smoke as cs
-    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.models import GPT2Config
+    from ray_tpu_torch.parallel import MeshConfig
+
+    cfg = (GPT2Config(**cfg) if cfg is not None else GPT2Config.medium(
+        dtype="bfloat16", attention="flash", remat=True))
+    return cs.northstar4_phase(
+        device=device, cfg=cfg, shape=shape or cs.NS4_SHAPE, workers=n,
+        mesh_cfg=MeshConfig(data=2, fsdp=n // 2),
+        loss_tol=LOSS_TOL[cfg.dtype])
+
+
+def ab(n) -> None:
+    """(a) and (b): one world of ``n`` NCCL processes, one a card."""
+    import chip_smoke as cs
     from ray_tpu_torch.parallel.launch import run_world
 
-    n = torch.cuda.device_count()
-    if n < 2:
-        print("parallel_cards: needs 2 or more cards", file=sys.stderr)
-        return 1
-    _build.build()  # once, before the ranks load the libraries
     cfg = dict(vocab_size=50304, max_seq=1024, n_layer=12, n_head=12,
                d_model=768, attention="ring")
-    t0 = time.perf_counter()
     ranks = run_world("parallel_cards:rank_main", n, paths=[HERE],
                       backend="nccl", timeout=900,
                       args=("cuda", cs.SP_SHAPE, cs.SP_REPS, cfg, 1024,
                             TRAIN, cs.SHARDED_STEPS))
-    print(f"card: {cs.card_line()} x {n}", flush=True)
     att = ranks[0]["attention"]
     att["launches_by_rank"] = {
         name: [r["attention"][name]["launches"] for r in ranks]
@@ -93,9 +111,30 @@ def main() -> int:
         train["launches_per_step_by_rank"] = [
             r[dtype]["sharded"]["launches_per_step"] for r in ranks]
         print(f"train_{dtype} " + json.dumps(train), flush=True)
+
+
+def main(parts="abc") -> int:
+    import torch
+
+    import chip_smoke as cs
+    from ray_tpu_torch.ops import _build
+
+    n = torch.cuda.device_count()
+    if n < 2 or ("c" in parts and n % 2):
+        print("parallel_cards: needs 2 or more cards, an even count for "
+              "(c)", file=sys.stderr)
+        return 1
+    _build.build()  # once, before the ranks load the libraries
+    t0 = time.perf_counter()
+    print(f"card: {cs.card_line()} x {n}", flush=True)
+    if "a" in parts or "b" in parts:
+        ab(n)
+    if "c" in parts:
+        ns4 = northstar4_cards(n)
+        cs.report_northstar4_phase(f"{cs.card_line()} x {n}", ns4)
     print(f"parallel_cards: {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(*sys.argv[1:]))

@@ -69,7 +69,7 @@ from ..device import DeviceLike, resolve_device
 from ..models import model_family
 from ..models.gpt2_decode import sample_logits
 from ..ops.decode_attention import decode_attention, release_scratch
-from ..util import flight_recorder
+from ..util import flight_recorder, tracing
 from .engine import EngineConfig, SamplingParams, encode_prompt
 from .tokenizer import ByteTokenizer
 
@@ -474,10 +474,16 @@ class ContinuousBatchingEngine:
             with self._lock:
                 known = self.prefix_cache.contains(key)
             if not known:
+                rec = tracing.active_recorder
+                t0 = time.time_ns() if rec is not None else 0
                 entry = PrefixKVCache.build_entry(
                     token_ids, k, v, meta["logits"],
                     self.cb.prefix_block_tokens,
                 )
+                if rec is not None:
+                    rec.add("llm.prefix_copy", t0, time.time_ns(),
+                            {"bytes": entry["k"].nbytes + entry["v"].nbytes},
+                            tracing.current_context())
         with self._lock:
             rid = next(self._next_id)
             if entry is not None:
@@ -520,6 +526,9 @@ class ContinuousBatchingEngine:
 
     def _enqueue_locked(self, rid: int, meta: dict, k, v) -> None:
         meta.setdefault("enq_t", time.monotonic())
+        if tracing.active_recorder is not None:
+            # The decode loop records the queue wait in this trace.
+            meta.setdefault("trace_ctx", tracing.current_context())
         self._waiting.append((rid, meta, k, v))
         self._subs.setdefault(rid, _queue.SimpleQueue())
         self._events.setdefault(rid, threading.Event())
@@ -570,7 +579,11 @@ class ContinuousBatchingEngine:
                 )
                 if not has_work:
                     # Bounded idle wait; woken by submissions.
+                    rec = tracing.active_recorder
+                    t0 = time.time_ns() if rec is not None else 0
                     self._cond.wait(timeout=0.05)
+                    if rec is not None:
+                        rec.add("cb.idle", t0, time.time_ns())
                     continue
             try:
                 self.step()
@@ -618,9 +631,14 @@ class ContinuousBatchingEngine:
 
     # ----------------------------------------------------------- stepping
     def step(self) -> None:
-        """One token boundary + one decode step for the active set."""
+        """One token boundary + one decode step for the active set.  With
+        the span recorder on, one ``cb.step`` span holding ``cb.boundary``,
+        ``cb.launch``, ``cb.sync``, ``cb.deliver`` and any ``cb.resize``."""
+        rec = tracing.active_recorder
+        t0 = time.time_ns() if rec is not None else 0
         admitted, retired = self._token_boundary()
-        active = self._decode_once()
+        bucket = self.bucket
+        active, synced_ns = self._decode_once()
         with self._lock:
             occupancy = sum(1 for s in self.slots if s is not None)
             queue_depth = len(self._waiting) + len(self._resume)
@@ -636,14 +654,25 @@ class ContinuousBatchingEngine:
             occupancy=occupancy, queue_depth=queue_depth,
             admitted=admitted, retired=retired, bucket=self.bucket,
         )
+        if rec is not None and synced_ns:
+            rec.add("cb.deliver", synced_ns, time.time_ns())
         self._maybe_shrink()
+        if rec is not None:
+            rec.add("cb.step", t0, time.time_ns(),
+                    {"bucket": bucket, "active": active})
 
     def _token_boundary(self) -> Tuple[int, int]:
         """Retire finished, run the starvation guard, admit waiters.
         Returns (admissions, retirements)."""
+        rec = tracing.active_recorder
+        t0 = time.time_ns() if rec is not None else 0
         retired = self._retire()
         self._starvation_guard()
-        return self._admit(), retired
+        admitted = self._admit()
+        if rec is not None:
+            rec.add("cb.boundary", t0, time.time_ns(),
+                    {"admitted": admitted, "retired": retired})
+        return admitted, retired
 
     def _retire(self) -> int:
         with self._lock:
@@ -822,6 +851,11 @@ class ContinuousBatchingEngine:
                     continue
                 seq = meta.get("resume_seq")
                 if seq is None:
+                    rec = tracing.active_recorder
+                    if rec is not None:
+                        rec.add("cb.queue_wait", rec.wall_ns(meta["enq_t"]),
+                                rec.wall_ns(now), {"rid": rid},
+                                meta.get("trace_ctx"))
                     seq = _Seq(
                         rid=rid,
                         prompt_len=meta["prompt_len"],
@@ -841,9 +875,14 @@ class ContinuousBatchingEngine:
     def _insert(self, idx: int, k: torch.Tensor, v: torch.Tensor) -> None:
         """Splice [L, 1, Hkv, S, D] pages into rows [0, S) of slot ``idx``
         (one copy each, host-to-device where the pages are on the host)."""
+        rec = tracing.active_recorder
+        t0 = time.time_ns() if rec is not None else 0
         s = k.shape[3]
         self.cache["k"][:, idx:idx + 1, :, :s].copy_(k)
         self.cache["v"][:, idx:idx + 1, :, :s].copy_(v)
+        if rec is not None:
+            rec.add("cb.splice", t0, time.time_ns(),
+                    {"bytes": k.nbytes + v.nbytes})
 
     def _set_bucket_locked(self, b: int) -> None:
         self.bucket = b
@@ -858,8 +897,13 @@ class ContinuousBatchingEngine:
             dst[name][:, :rows].copy_(self.cache[name][:, :rows])
 
     def _grow(self) -> None:
+        rec = tracing.active_recorder
+        t0 = time.time_ns() if rec is not None else 0
         new = self._buckets[self._buckets.index(self.bucket) + 1]
         self._resize(self.bucket, new)
+        if rec is not None:
+            rec.add("cb.resize", t0, time.time_ns(),
+                    {"from": self.bucket, "to": new})
         with self._lock:
             self.slots.extend([None] * (new - self.bucket))
             self._set_bucket_locked(new)
@@ -884,6 +928,8 @@ class ContinuousBatchingEngine:
                         self._low_occupancy_steps = 0
                         return
                     moves.append((i, free_low.pop(0)))
+        rec = tracing.active_recorder
+        t0 = time.time_ns() if rec is not None else 0
         for src, dst in moves:
             for name in ("k", "v"):
                 self.cache[name][:, dst].copy_(self.cache[name][:, src])
@@ -892,19 +938,24 @@ class ContinuousBatchingEngine:
                 self.slots[dst] = self.slots[src]
                 self.slots[src] = None
         self._resize(old, new)
+        if rec is not None:
+            rec.add("cb.resize", t0, time.time_ns(), {"from": old, "to": new})
         with self._lock:
             self.slots = self.slots[:new]
             self._set_bucket_locked(new)
             self._low_occupancy_steps = 0
 
-    def _decode_once(self) -> int:
+    def _decode_once(self) -> Tuple[int, int]:
+        """Decode one token for every active row.  Returns (rows decoded,
+        when their tokens reached the host on ``time.time_ns()``'s clock,
+        or 0 with the span recorder off)."""
         with self._lock:
             active = [
                 (i, s) for i, s in enumerate(self.slots)
                 if s is not None and not s.done and not s.cancelled
             ]
             if not active:
-                return 0
+                return 0, 0
             # Free rows decode token 0 at position 0: they attend to nothing
             # and their row is rewritten by the next admission's splice.
             tokens = np.zeros(self.bucket, np.int32)
@@ -913,9 +964,13 @@ class ContinuousBatchingEngine:
                 tokens[i] = s.generated[-1]
                 pos[i] = s.last_pos
             bucket = self.bucket
+        rec = tracing.active_recorder
+        t_launch = time.time_ns() if rec is not None else 0
         t0 = time.perf_counter()
         prog = self.decode_program(bucket)
         logits = prog.decode(tokens, pos)
+        if rec is not None:
+            t_sync = time.time_ns()
         # Sampling outside the lock; one device argmax serves every greedy
         # row, and the copy to the host waits for the step.
         greedy = torch.argmax(logits, dim=-1).tolist()
@@ -925,6 +980,14 @@ class ContinuousBatchingEngine:
             for i, s in active
         ]
         prog.decode_s += time.perf_counter() - t0
+        synced_ns = 0
+        if rec is not None:
+            synced_ns = time.time_ns()
+            # No stream handle on the span: traced runs on the H100 that
+            # read the current stream each step mostly hung in
+            # torch.profiler's stop (the cause is not confirmed).
+            rec.add("cb.launch", t_launch, t_sync)
+            rec.add("cb.sync", t_sync, synced_ns)
         now = time.monotonic()
         with self._lock:
             for i, s, token in sampled:
@@ -935,7 +998,7 @@ class ContinuousBatchingEngine:
                 s.last_t = now
                 self._push_delta_locked(s, [token])
                 self._check_done_locked(s)
-        return len(active)
+        return len(active), synced_ns
 
     def _push_delta_locked(self, s: _Seq, token_ids: List[int]) -> None:
         q = self._subs.get(s.rid)
@@ -1088,11 +1151,18 @@ class BatchedDecodeReplica:
 
     def add_from_kv(self, meta: Dict[str, Any]) -> int:
         """Fetch the KV pages from the prefill owner and enqueue (token-
-        boundary admission into the running batch)."""
+        boundary admission into the running batch); with the span recorder
+        on, one ``llm.kv_submit`` span."""
         from .disagg import fetch_prefill_kv
 
-        k, v = fetch_prefill_kv(meta)
-        return self.engine.submit_kv(meta, k, v)
+        if tracing.active_recorder is None:
+            k, v = fetch_prefill_kv(meta)
+            return self.engine.submit_kv(meta, k, v)
+        # The queue wait joins the request's trace beside this span.
+        meta["trace_ctx"] = tracing.current_context()
+        with tracing.start_span("llm.kv_submit"):
+            k, v = fetch_prefill_kv(meta)
+            return self.engine.submit_kv(meta, k, v)
 
     def try_add_cached(self, prompt: str,
                        params: Optional[SamplingParams] = None

@@ -68,6 +68,9 @@ class PrefillEngine:
             self.params = self.family.init(gen, cfg.model, self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
+        # Prefills running now; kept while the span recorder is on.
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
 
     def prefill(
         self, prompt: str, params: Optional[SamplingParams] = None
@@ -76,7 +79,26 @@ class PrefillEngine:
 
         The caller (router) hands the dict to a decode replica, which
         fetches and frees the refs: the pages live here only until that
-        single consumer collects them."""
+        single consumer collects them.  With the span recorder on, one
+        ``llm.prefill`` span holding ``llm.prefill.launch`` and
+        ``llm.prefill.sync``."""
+        if tracing.active_recorder is None:
+            return self._prefill(prompt, params, None)
+        with self._inflight_lock:
+            self._inflight += 1
+            inflight = self._inflight
+        try:
+            with tracing.start_span("llm.prefill",
+                                    {"inflight": inflight}) as span:
+                return self._prefill(prompt, params, span)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    def _prefill(self, prompt: str, params: Optional[SamplingParams],
+                 span: Optional[tracing.Span]) -> Dict[str, Any]:
+        if span is not None:
+            t0, cpu0 = time.time_ns(), time.thread_time_ns()
         params = params or SamplingParams()
         token_ids = encode_prompt(self.tokenizer, prompt, self.cfg.max_seq_len)
         n = len(token_ids)
@@ -87,7 +109,18 @@ class PrefillEngine:
         lengths = torch.tensor([n], device=self.device)
         logits, cache = self.family.prefill(self.params, tokens, lengths,
                                             cache, mcfg)
+        if span is not None:
+            t1, cpu1 = time.time_ns(), time.thread_time_ns()
         host_logits = logits[0].cpu()
+        if span is not None:
+            t2 = time.time_ns()
+            span.set_attribute("tokens", n)
+            rec = tracing.active_recorder
+            if rec is not None:
+                ctx = (span.trace_id, span.span_id)
+                rec.add("llm.prefill.launch", t0, t1,
+                        {"cpu_ns": cpu1 - cpu0}, ctx)
+                rec.add("llm.prefill.sync", t1, t2, None, ctx)
         if params.temperature == 0.0:
             first = int(torch.argmax(host_logits))
         else:
@@ -464,15 +497,28 @@ class DisaggRouter:
         cache or prefill+KV handoff), then yield the decode replica's text
         deltas.  Inside a traced caller (e.g. the serve SSE path) the
         admission and decode calls inherit the active span, so one
-        stitched trace covers router -> prefill -> decode."""
-        d, _ = self._select_decode(prompt)
-        rid = self._admit(prompt, params, d, timeout_s)
-        if self._is_actor(d):
-            gen = d.run_stream.options(num_returns="streaming").remote(rid)
-            for ref in gen:
-                yield ray_tpu_torch.get(ref, timeout=timeout_s)
-        else:
-            yield from d.run_stream(rid, timeout_s=timeout_s)
+        stitched trace covers router -> prefill -> decode.  With the span
+        recorder on, the request is one ``llm.request`` span whose trace
+        the prefill, the KV handoff and the queue wait join."""
+        root = None
+        if tracing.active_recorder is not None:
+            root = tracing.detached_span(
+                "llm.request",
+                {"prompt_tokens": len(self._tokenizer.encode(prompt))})
+        try:
+            d, _ = self._select_decode(prompt)
+            with tracing.span_context(root):
+                rid = self._admit(prompt, params, d, timeout_s)
+            if self._is_actor(d):
+                gen = d.run_stream.options(num_returns="streaming").remote(
+                    rid)
+                for ref in gen:
+                    yield ray_tpu_torch.get(ref, timeout=timeout_s)
+            else:
+                yield from d.run_stream(rid, timeout_s=timeout_s)
+        finally:
+            if root is not None:
+                tracing.finish_span(root)
 
     def generate_many(
         self,

@@ -1,4 +1,5 @@
-"""Distributed tracing: span propagation across task and actor calls.
+"""Distributed tracing: span propagation across task and actor calls, and
+an in-process span recorder.
 
 Reference: ray ``python/ray/util/tracing/tracing_helper.py:34,165`` — an
 OpenTelemetry context is injected into every task spec at submission and
@@ -14,6 +15,51 @@ Usage:
     with tracing.start_span("preprocess") as span:
         ...                       # user code; nested submits inherit
     spans = tracing.get_trace(span.trace_id)   # driver-side query
+
+**The in-process recorder.**  ``recording()`` turns on a process-local
+recorder for a block; off (the default) an instrumented site costs one
+read of ``active_recorder``.  On, every span of the process lands in a
+bounded in-memory buffer, with or without a cluster worker: those of
+``start_span``, ``record_span`` and ``finish_span``, and the serving
+path's own.  Each is a ``SpanRecord``: name, ``start_ns``/``end_ns`` on
+``time.time_ns()`` (the clock ``torch.profiler``'s device timestamps are
+put on, so spans and kernels share one time line), the recording
+thread's name, trace/span/parent ids where the site has them, and a few
+integer attributes.  A site that reads ``time.time_ns()`` itself records
+with ``Recorder.add``; ``Span`` keeps float seconds, converted once on
+the way in.  Past ``capacity`` spans are counted in ``dropped``, not
+stored::
+
+    with tracing.recording(capacity=1 << 20) as rec:
+        ...                                   # serve requests
+    for s in rec.spans():
+        print(s.name, s.thread, (s.end_ns - s.start_ns) / 1e6, s.attrs)
+    assert rec.dropped == 0
+
+The serving path's spans (``llm/disagg.py``, ``llm/continuous_batching.py``):
+
+- ``llm.request``: ``DisaggRouter.stream``, call to the generator's end;
+  the root of the request's trace (``prompt_tokens``).
+- ``llm.prefill``: ``PrefillEngine.prefill`` (``tokens``; ``inflight``:
+  prefills running on the engine when it began, itself included); inside
+  it ``llm.prefill.launch``, the eager kernels enqueued (``cpu_ns``: the
+  thread's CPU time over the span), and ``llm.prefill.sync``, the wait
+  for the logits on the host.
+- ``llm.kv_submit``: ``BatchedDecodeReplica.add_from_kv``, the KV fetched
+  and enqueued; inside it ``llm.prefix_copy``, the prefix cache's host
+  copy (``bytes``).
+- ``cb.queue_wait``: enqueue to the slot's commit at admission, recorded
+  by the decode loop in the request's trace (``rid``).
+- The decode loop's thread (``llm-cb-decode``): ``cb.step`` a step
+  (``bucket``, ``active``), holding ``cb.boundary`` (``admitted``,
+  ``retired``; each admission's ``cb.splice`` inside, ``bytes``),
+  ``cb.resize`` (``from``, ``to``), ``cb.launch`` (inputs copied, graph
+  replayed), ``cb.sync`` (the wait for the step's tokens)
+  and ``cb.deliver`` (deltas pushed, step telemetry); ``cb.idle`` is a
+  wait with no work.
+
+``tools/serving_spans.py`` runs a benchmark cell with the recorder on
+and reads these spans against the card's kernels.
 """
 
 from __future__ import annotations
@@ -22,8 +68,9 @@ import contextlib
 import contextvars
 import dataclasses
 import os
+import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 # (trace_id, span_id) of the currently active span in THIS process/task.
 _current: contextvars.ContextVar[Optional[Tuple[str, str]]] = (
@@ -49,6 +96,89 @@ class Span:
         self.attributes[key] = value
 
 
+class SpanRecord(NamedTuple):
+    """One span as the in-process recorder keeps it."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: str
+    trace_id: Optional[str]
+    span_id: Optional[str]
+    parent_id: Optional[str]
+    attrs: Optional[Dict[str, Any]]
+
+
+class Recorder:
+    """A bounded in-memory buffer of ``SpanRecord``s (see ``recording``).
+    ``add`` holds the buffer's lock for one append only."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self.dropped = 0
+        self._spans: List[SpanRecord] = []
+        self._closed = False
+        self._lock = threading.Lock()
+        # time.monotonic() -> time.time_ns(), for sites that already read
+        # the monotonic clock: the wall clock's reading against the
+        # midpoint of two monotonic ones.
+        m0 = time.monotonic_ns()
+        wall = time.time_ns()
+        self._mono_offset_ns = wall - (m0 + time.monotonic_ns()) // 2
+
+    def wall_ns(self, monotonic_s: float) -> int:
+        """A ``time.monotonic()`` reading on ``time.time_ns()``'s clock."""
+        return round(monotonic_s * 1e9) + self._mono_offset_ns
+
+    def add(self, name: str, start_ns: int, end_ns: int,
+            attrs: Optional[Dict[str, Any]] = None,
+            context: Optional[Tuple[str, str]] = None,
+            span_id: Optional[str] = None) -> None:
+        """Record a span measured on ``time.time_ns()``; ``context`` is its
+        (trace_id, parent_span_id), e.g. ``current_context()``."""
+        trace_id, parent_id = context or (None, None)
+        rec = SpanRecord(name, start_ns, end_ns,
+                         threading.current_thread().name, trace_id, span_id,
+                         parent_id, attrs)
+        with self._lock:
+            if self._closed:  # a site that read the recorder before it ended
+                return
+            if len(self._spans) < self.capacity:
+                self._spans.append(rec)
+            else:
+                self.dropped += 1
+
+    def close(self) -> None:
+        """Take no more spans."""
+        with self._lock:
+            self._closed = True
+
+    def spans(self) -> List[SpanRecord]:
+        with self._lock:
+            return list(self._spans)
+
+
+# The recorder while ``recording()`` is on, else None.  Sites read it as
+# ``tracing.active_recorder`` (an attribute of this module, never a name
+# imported from it) and do nothing more when it is None.
+active_recorder: Optional[Recorder] = None
+
+
+@contextlib.contextmanager
+def recording(capacity: int = 1 << 20):
+    """Record this process's spans for the block; yields the ``Recorder``.
+    One recorder at a time."""
+    global active_recorder
+    if active_recorder is not None:
+        raise RuntimeError("a span recorder is already on in this process")
+    rec = active_recorder = Recorder(capacity)
+    try:
+        yield rec
+    finally:
+        active_recorder = None
+        rec.close()
+
+
 def current_context() -> Optional[Tuple[str, str]]:
     """(trace_id, span_id) to inject into outgoing task specs."""
     return _current.get()
@@ -60,6 +190,11 @@ def set_context(ctx: Optional[Tuple[str, str]]):
 
 
 def _record(span: Span) -> None:
+    rec = active_recorder
+    if rec is not None:
+        rec.add(span.name, round(span.start * 1e9), round(span.end * 1e9),
+                span.attributes or None, (span.trace_id, span.parent_id),
+                span.span_id)
     from ray_tpu_torch.core.core_worker import try_global_worker
 
     w = try_global_worker()

@@ -136,6 +136,9 @@ DIVERGES = {
     "util/flight_recorder.py": ("synchronizes CUDA streams in place of "
                                 "jax.block_until_ready",
                                 "f1490ad47578784a"),
+    "util/tracing.py": ("the in-process span recorder (`recording`, "
+                        "`SpanRecord`, `Recorder`) that the port's serving "
+                        "path records into", "e19c90ea7d09b69d"),
     "train/__init__.py": ("no JaxBackend and JaxTrainer (TorchBackend and "
                           "TorchTrainer take their role)", "b797446bd11bd7a7"),
     "train/backend.py": ("TorchBackend picks nccl or gloo by the workers' "

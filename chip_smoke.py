@@ -1223,6 +1223,13 @@ def graph_launches(programs: dict) -> int:
                for p in programs.values())
 
 
+def prefill_flash(pre) -> int:
+    """Flash forwards a ``PrefillEngine``'s graph replays launched so far:
+    its wrapper's counter ticks at capture only, as the decode wrapper's
+    does."""
+    return pre.stats()["graph_flash_launches"]
+
+
 def program_deltas(before: dict, after: dict) -> dict:
     """Per-bucket steps and decode seconds between two ``stats()``."""
     out = {}
@@ -1399,6 +1406,7 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
     before = engine.stats()
     trace_from = len(engine.bucket_trace)
     reset_counters()
+    replayed0 = prefill_flash(pre.engine)
     # The burst runs under the profiler's kernel trace (CUDA activity only,
     # no host-op recording), so its kernels, graph replays' included, are
     # counted on the card by name.
@@ -1408,7 +1416,7 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
             stagger_s)
         torch.cuda.synchronize()
     pre.engine.prefill = prefill
-    flash_run = flash_attention.launches
+    flash_run = flash_attention.launches + prefill_flash(pre.engine) - replayed0
     eager_decode = decode_attention.launches
     mid = engine.stats()
     traced = [e for e in prof.key_averages()
@@ -1420,7 +1428,8 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
     again = [router.generate(p, sp, timeout_s=600)
              for p in prompts[:repeats]]
     end = engine.stats()
-    flash_repeats = flash_attention.launches - flash_run
+    flash_repeats = (flash_attention.launches + prefill_flash(pre.engine)
+                     - replayed0 - flash_run)
     # Grown under the burst, shrunk after it (the repeats run one at a time).
     trace = list(engine.bucket_trace)[trace_from - 1:]
     # The burst again with no trace, on an empty prefix cache so every
@@ -1459,7 +1468,8 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
         "repeats_equal_first": sum(a["token_ids"] == o["token_ids"]
                                    for a, o in zip(again, outs)),
         # Kernel launches in the burst: the flash forward counted by its
-        # wrapper and by the trace; the decode kernel by the trace, beside
+        # wrapper and the prefill graphs' replays, and by the trace; the
+        # decode kernel by the trace, beside
         # the wrappers' eager count and each bucket's launches per captured
         # graph times its replays in the burst.
         "launches": {
@@ -1496,7 +1506,8 @@ def cb_serve(prompts, max_tokens: int, stagger_s: float, repeats: int):
                         f"{rep['launches']['decode_attention_graph']} replayed")
     if traced_flash != flash_run:
         problems.append(f"{traced_flash} {FLASH_KERNEL} kernels traced in the "
-                        f"burst, {flash_run} counted by the wrapper")
+                        f"burst, {flash_run} counted by the wrapper and the "
+                        "prefill graphs")
     dec.close()
     rep["profile"] = profile_cb(engine, pre.engine, prompts[:8], 10)
     print("cb profile " + json.dumps(rep["profile"]), flush=True)
@@ -1573,7 +1584,7 @@ def cb_parity(model_cfg):
                 raise AssertionError("prefix cache missed a finished prompt")
     results = {rid: engine.result(rid) for rid in rids + [cached]}
     st = engine.stats()
-    flash_cb = flash_attention.launches
+    flash_cb = flash_attention.launches + prefill_flash(pre)
     if flash_cb != model_cfg.n_layer * len(prompts):
         raise AssertionError(f"flash launches {flash_cb} for {len(prompts)} "
                              "prefills")
@@ -2103,6 +2114,8 @@ class _TimedPrefill(PrefillReplica):
     becomes its enqueue time, from which the decode engine's own serving
     telemetry counts its TTFT."""
 
+    _replayed = 0  # the prefill graphs' flash launches at the last reset
+
     def prefill(self, prompt, params=None):
         t0 = time.monotonic()
         meta = super().prefill(prompt, params)
@@ -2111,10 +2124,13 @@ class _TimedPrefill(PrefillReplica):
         return meta
 
     def launches(self, reset: bool = False):
-        out = {"flash_fwd": flash_attention.launches,
+        replayed = prefill_flash(self.engine)
+        out = {"flash_fwd": (flash_attention.launches + replayed
+                             - self._replayed),
                "decode_attention": decode_attention.launches}
         if reset:
             reset_counters()
+            self._replayed = replayed
         return out
 
 

@@ -36,23 +36,47 @@ from ..collective.device_objects import device_object_store
 from ..device import DeviceLike, resolve_device
 from ..models import model_family
 from ..models.gpt2_decode import sample_logits
+from ..ops.attention import flash_attention
 from .continuous_batching import full_prompt_key, prefix_block_keys
 from .engine import EngineConfig, SamplingParams, TorchLLMEngine, encode_prompt
 from ..util import flight_recorder, tracing
 from .tokenizer import ByteTokenizer
 
 
+# Prompt-length buckets of ``PrefillEngine``: a prompt runs padded to the
+# first edge at or above its length.  Past the first edge the padding is
+# under 2x the prompt; below it a prefill reads the weights whatever its
+# length, so one 64-row bucket serves them all.
+PREFILL_EDGES = (64, 128, 256, 512, 768, 1024)
+
+
+def prefill_buckets(max_seq_len: int) -> List[int]:
+    """The prefill buckets for prompts of up to ``max_seq_len`` tokens:
+    ``PREFILL_EDGES``, doubled on past 1024, cut at ``max_seq_len``,
+    which is always the last."""
+    edges = list(PREFILL_EDGES)
+    while edges[-1] < max_seq_len:
+        edges.append(2 * edges[-1])
+    return [e for e in edges if e < max_seq_len] + [max_seq_len]
+
+
 class PrefillEngine:
     """Prefill-only engine: prompt -> (first token, resident KV pages).
 
-    No batch slots, no decode step: one eager prefill over the prompt's own
-    length, as ``TorchLLMEngine`` prefills (causal attention gives the same
-    values below the length, so the pages equal the JAX engine's first
-    ``n`` rows).  The pages are published to the device-object store and
-    ownership transfers to the fetching decode replica.  Callers on several
-    threads prefill at once, each on its own tensors.  A prefill returns
-    after its logits reach the host, so its pages are complete on the card
-    before any other stream reads them.
+    No batch slots, no decode step.  A prompt of ``n`` tokens runs right-
+    padded to its bucket (``prefill_buckets``) over static inputs and one
+    static cache; causal attention keeps rows ``[0, n)`` those of an
+    unpadded prefill, and those rows are cloned out as the prompt's
+    ``[L, 1, Hkv, n, D]`` pages (the JAX engine's first ``n`` rows).  On
+    the card each bucket's prefill is a CUDA graph captured in the
+    constructor, so a prefill is one replay; on the CPU the same padded
+    prefill runs eagerly.  The pages are published to the device-object
+    store and ownership transfers to the fetching decode replica.
+
+    Callers on several threads prefill at once: each takes the engine's
+    lock for its copy in, replay and copies out, and holds it until its
+    logits reach the host, so its pages are complete on the card before
+    any other stream reads them.
     """
 
     def __init__(self, cfg: EngineConfig, tokenizer=None,
@@ -71,6 +95,107 @@ class PrefillEngine:
         # Prefills running now; kept while the span recorder is on.
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+        self.buckets = prefill_buckets(cfg.max_seq_len)
+        top = self.buckets[-1]
+        # Static inputs: [0] the prompt's length, [1:] its right-padded
+        # tokens, filled by one copy a prefill.
+        self._inputs = torch.zeros(1 + top, dtype=torch.long,
+                                   device=self.device)
+        self._cache = self.family.init_cache(cfg.model, 1, top, self.device)
+        self._lock = threading.Lock()
+        # Bucket -> its captured prefill and the graph's static logits.
+        self._graphs: Dict[int, torch.cuda.CUDAGraph] = {}
+        self._logits: Dict[int, torch.Tensor] = {}
+        self.capture_s: Dict[int, float] = {}
+        # Flash-forward launches each graph holds, counted at capture: a
+        # replay launches them again, and the wrapper's counter, which
+        # ticks on the host, sees only the capture.
+        self._flash_per_replay: Dict[int, int] = {}
+        self.counters = {"graph_prefills": 0, "eager_prefills": 0,
+                         "padded_tokens": 0, "prompt_tokens": 0,
+                         "graph_flash_launches": 0}
+        if self.device.type == "cuda":
+            self._capture()
+
+    def _run(self, bucket: int) -> torch.Tensor:
+        """The padded prefill of ``bucket`` rows over the static inputs:
+        the last position's logits [1, V] f32, rows [0, bucket) of the
+        static cache written."""
+        tokens = self._inputs[None, 1:1 + bucket]
+        return self.family.prefill(self.params, tokens, self._inputs[:1],
+                                   self._cache, self.cfg.model)[0]
+
+    def _capture(self) -> None:
+        """Capture every bucket's prefill, each after one warm-up run, on a
+        stream of the engine's own, into one memory pool: the graphs never
+        run at once, so they may share it."""
+        stream = torch.cuda.Stream(self.device)
+        pool = torch.cuda.graph_pool_handle()
+        current = torch.cuda.current_stream(self.device)
+        self._inputs[0] = 1  # a length every bucket holds
+        for b in self.buckets:
+            t0 = time.perf_counter()
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                self._run(b)
+            current.wait_stream(stream)
+            graph = torch.cuda.CUDAGraph()
+            before = flash_attention.launches
+            # thread_local: other threads may use the card meanwhile.
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                logits = self._run(b)
+            self._flash_per_replay[b] = flash_attention.launches - before
+            self._graphs[b], self._logits[b] = graph, logits
+            torch.cuda.synchronize(self.device)
+            self.capture_s[b] = time.perf_counter() - t0
+
+    def bucket_of(self, n: int) -> int:
+        """The bucket a prompt of ``n`` tokens runs in."""
+        return next(b for b in self.buckets if b >= n)
+
+    def run_ids(self, token_ids: List[int], marks: Optional[list] = None):
+        """Prefill ``token_ids`` (at most ``max_seq_len`` of them):
+        (last-position logits [1, V] f32, the same on the host as [V], k and
+        v pages [L, 1, Hkv, n, D], the bucket replayed or 0 where the
+        prefill ran eagerly), each a tensor of the caller's own.  ``marks``
+        gets (``time.time_ns()``, ``time.thread_time_ns()``) once the work
+        is enqueued, before the wait for the logits."""
+        n = len(token_ids)
+        b = self.bucket_of(n)
+        row = torch.zeros(1 + b, dtype=torch.long)
+        row[0] = n
+        row[1:1 + n] = torch.tensor(token_ids, dtype=torch.long)
+        with self._lock:
+            self._inputs[:1 + b].copy_(row)
+            graph = self._graphs.get(b)
+            if graph is None:
+                logits = self._run(b)
+            else:
+                graph.replay()
+                logits = self._logits[b]
+            logits = logits.clone()
+            k = self._cache["k"][:, :, :, :n].clone()
+            v = self._cache["v"][:, :, :, :n].clone()
+            if marks is not None:
+                marks.append((time.time_ns(), time.thread_time_ns()))
+            host_logits = logits[0].cpu()
+            c = self.counters
+            c["padded_tokens"] += b
+            c["prompt_tokens"] += n
+            if graph is None:
+                c["eager_prefills"] += 1
+            else:
+                c["graph_prefills"] += 1
+                c["graph_flash_launches"] += self._flash_per_replay[b]
+        return logits, host_logits, k, v, (0 if graph is None else b)
+
+    def stats(self) -> Dict[str, Any]:
+        """What the engine ran: ``graph_prefills`` and ``eager_prefills``;
+        ``prompt_tokens`` and ``padded_tokens`` (the rows the padded
+        prefills ran); ``graph_flash_launches``, the flash forwards the
+        replays launched; and ``capture_s`` by bucket."""
+        return {**self.counters, "capture_s": dict(self.capture_s)}
 
     def prefill(
         self, prompt: str, params: Optional[SamplingParams] = None
@@ -97,24 +222,17 @@ class PrefillEngine:
 
     def _prefill(self, prompt: str, params: Optional[SamplingParams],
                  span: Optional[tracing.Span]) -> Dict[str, Any]:
-        if span is not None:
-            t0, cpu0 = time.time_ns(), time.thread_time_ns()
+        marks = None if span is None else []
+        t0, cpu0 = time.time_ns(), time.thread_time_ns()
         params = params or SamplingParams()
         token_ids = encode_prompt(self.tokenizer, prompt, self.cfg.max_seq_len)
         n = len(token_ids)
-        mcfg = self.cfg.model
-        cache = self.family.init_cache(mcfg, 1, n, self.device)
-        tokens = torch.tensor([token_ids], dtype=torch.long,
-                              device=self.device)
-        lengths = torch.tensor([n], device=self.device)
-        logits, cache = self.family.prefill(self.params, tokens, lengths,
-                                            cache, mcfg)
-        if span is not None:
-            t1, cpu1 = time.time_ns(), time.thread_time_ns()
-        host_logits = logits[0].cpu()
+        logits, host_logits, k, v, bucket = self.run_ids(token_ids, marks)
         if span is not None:
             t2 = time.time_ns()
+            (t1, cpu1), = marks
             span.set_attribute("tokens", n)
+            span.set_attribute("bucket", bucket)
             rec = tracing.active_recorder
             if rec is not None:
                 ctx = (span.trace_id, span.span_id)
@@ -136,8 +254,8 @@ class PrefillEngine:
             # the first token exactly on a cache hit.
             "token_ids": list(token_ids),
             "logits": host_logits,
-            "k_ref": store.put(cache["k"]),
-            "v_ref": store.put(cache["v"]),
+            "k_ref": store.put(k),
+            "v_ref": store.put(v),
         }
 
 

@@ -41,8 +41,11 @@ The serving path's spans (``llm/disagg.py``, ``llm/continuous_batching.py``):
 - ``llm.request``: ``DisaggRouter.stream``, call to the generator's end;
   the root of the request's trace (``prompt_tokens``).
 - ``llm.prefill``: ``PrefillEngine.prefill`` (``tokens``; ``inflight``:
-  prefills running on the engine when it began, itself included); inside
-  it ``llm.prefill.launch``, the eager kernels enqueued (``cpu_ns``: the
+  prefills running on the engine when it began, itself included;
+  ``bucket``: the prompt-length bucket whose CUDA graph it replayed, 0
+  where it ran eagerly); inside it ``llm.prefill.launch``, the engine's
+  lock taken and the work enqueued: inputs copied in, the graph replayed
+  or the eager kernels launched, the pages cloned out (``cpu_ns``: the
   thread's CPU time over the span), and ``llm.prefill.sync``, the wait
   for the logits on the host.
 - ``llm.kv_submit``: ``BatchedDecodeReplica.add_from_kv``, the KV fetched

@@ -138,7 +138,7 @@ DIVERGES = {
                                 "f1490ad47578784a"),
     "util/tracing.py": ("the in-process span recorder (`recording`, "
                         "`SpanRecord`, `Recorder`) that the port's serving "
-                        "path records into", "e19c90ea7d09b69d"),
+                        "path records into", "12ae6c33064ab339"),
     "train/__init__.py": ("no JaxBackend and JaxTrainer (TorchBackend and "
                           "TorchTrainer take their role)", "b797446bd11bd7a7"),
     "train/backend.py": ("TorchBackend picks nccl or gloo by the workers' "

@@ -97,6 +97,7 @@ def test_a_requests_spans_share_its_trace_and_nest(router):
         prefill, = (s for s in mine if s.name == "llm.prefill")
         assert prefill.attrs["tokens"] == root.attrs["prompt_tokens"]
         assert 1 <= prefill.attrs["inflight"] <= len(PROMPTS)
+        assert prefill.attrs["bucket"] == 0  # eager: no graph on the CPU
         launch, = (s for s in mine if s.name == "llm.prefill.launch")
         sync, = (s for s in mine if s.name == "llm.prefill.sync")
         for child in (launch, sync):
@@ -271,7 +272,7 @@ def _hand_built():
     spans = [
         _span("llm.request", 0, 90, trace="t1", span="r1", prompt_tokens=10),
         _span("llm.prefill", 5, 35, trace="t1", span="p1", parent="r1",
-              tokens=10, inflight=1),
+              tokens=10, inflight=1, bucket=64),
         _span("llm.prefill.launch", 5, 25, trace="t1", parent="p1",
               cpu_ns=5 * MS),
         _span("llm.prefill.sync", 25, 35, trace="t1", parent="p1"),
@@ -282,7 +283,7 @@ def _hand_built():
         _span("llm.request", 48, 85, "c2", trace="t2", span="r2",
               prompt_tokens=20),
         _span("llm.prefill", 50, 64, "c2", trace="t2", span="p2",
-              parent="r2", tokens=20, inflight=2),
+              parent="r2", tokens=20, inflight=2, bucket=0),
         _span("llm.prefill.launch", 50, 60, "c2", trace="t2", parent="p2",
               cpu_ns=5 * MS),
         _span("llm.prefill.sync", 60, 64, "c2", trace="t2", parent="p2"),
@@ -347,6 +348,8 @@ def test_tool_reads_a_hand_built_record():
     assert (d["inflight_median"], d["inflight_max"]) == (1.5, 2)
     assert d["launch_off_cpu_share"] == pytest.approx(2 / 3)
     assert d["prefix_copy_GBps"] == pytest.approx(2.0)
+    assert d["prefill_graph_share"] == 0.5  # one replay, one eager
+    assert d["prefill_buckets"] == {"0": 1, "64": 1}
 
 
 def test_tool_reads_nothing_without_program_spans():
@@ -381,3 +384,4 @@ def test_tool_on_a_tiny_traced_cpu_run(tmp_path):
                       .read_text())
     assert full["ttft"]["requests"] >= 1
     assert full["details"]["spans"] > 0
+    assert full["details"]["prefill_graph_share"] == 0.0  # the CPU's eager

@@ -32,7 +32,9 @@ costs.  Prints one ``RESULT`` line and writes everything it read to
   sync and of ``decode_attention`` kernels inside a ``cb.step``;
 - each answered request's TTFT, cut at the spans of its trace;
 - ``llm.prefill``'s ``inflight``, the launch's share off the CPU, and the
-  prefix copy's GB/s.
+  prefix copy's GB/s;
+- the share of prefills that replayed a captured graph (``llm.prefill``'s
+  ``bucket`` above 0) and the prefills by bucket.
 """
 
 import time
@@ -296,18 +298,28 @@ def ttft_decomposition(record, spans):
 
 
 def details(record, spans):
-    """What the six metrics leave out: prefills in flight, the launch's
-    share off the CPU, the prefix copy's size and rate, and the seconds
-    each span name covers in the part read."""
+    """What the six metrics leave out: prefills in flight, the graph
+    share of the prefills and their buckets, the launch's share off the
+    CPU, the prefix copy's size and rate, and the seconds each span name
+    covers in the part read."""
     w0, w1 = record["window_ns"]
     out = {"spans": len(spans)}
 
     def begun(name):
         return [s for s in spans if s.name == name and w0 <= s.start_ns < w1]
 
-    inflight = [s.attrs["inflight"] for s in begun("llm.prefill")]
+    prefills = begun("llm.prefill")
+    inflight = [s.attrs["inflight"] for s in prefills]
     out["inflight_median"] = _median(inflight)
     out["inflight_max"] = max(inflight) if inflight else None
+    # The bucket a prefill replayed, 0 where it ran eagerly; a program
+    # whose spans carry no bucket leaves both out.
+    buckets = [s.attrs["bucket"] for s in prefills if "bucket" in s.attrs]
+    if buckets:
+        out["prefill_graph_share"] = sum(b > 0 for b in buckets) / len(
+            buckets)
+        out["prefill_buckets"] = {str(b): buckets.count(b)
+                                  for b in sorted(set(buckets))}
     launch = begun("llm.prefill.launch")
     if launch:
         wall = sum(s.end_ns - s.start_ns for s in launch)
